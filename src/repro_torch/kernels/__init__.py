@@ -1,0 +1,14 @@
+"""repro_torch.kernels — the hand-written CUDA kernels and the ops around them.
+
+``KERNELS`` names each CUDA kernel wrapper; a wrapper's ``launches``
+attribute counts the times it launched its kernel.
+"""
+from .csr_build.kernel import count_degrees
+from .slot_update.kernel import merge_rows
+from .slot_walk.kernel import tile_cumsum
+
+KERNELS = {
+    "tile_cumsum": tile_cumsum,
+    "merge_rows": merge_rows,
+    "count_degrees": count_degrees,
+}

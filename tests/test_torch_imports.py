@@ -1,0 +1,145 @@
+"""Import hygiene and device rules of the PyTorch port (``repro_torch``).
+
+* the port never imports ``jax`` or ``repro`` (checked in a fresh process);
+* its entry points default to ``device="cuda"`` and raise without a GPU;
+* on CPU tensors no CUDA kernel is launched: the wrappers use their plain
+  versions, and every ``launches`` count stays 0.
+"""
+import ast
+import os
+import runpy
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import DiGraph, csr, edgebatch, updates, util
+from repro_torch.io import synthetic
+from repro_torch.kernels import KERNELS
+from repro_torch.kernels.csr_build import kernel as cb_kernel
+from repro_torch.kernels.slot_update import kernel as su_kernel
+from repro_torch.kernels.slot_walk import kernel as sw_kernel
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+SRC = os.path.join(ROOT, "src")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC
+    return env
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_imports_only_the_port():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module.split(".")[0])
+    assert mods <= {"contextlib", "json", "os", "subprocess", "sys", "time", "numpy",
+                    "torch", "repro_torch"}, mods
+
+
+def test_chip_smoke_fails_without_a_gpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    smoke = runpy.run_path(os.path.join(ROOT, "chip_smoke.py"))
+    with pytest.raises(SystemExit) as exc:
+        smoke["main"]()
+    assert exc.value.code not in (0, None)
+    assert '"ok"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize(
+    "entry",
+    ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree"],
+)
+def test_default_device_raises_without_gpu(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    c = csr.from_coo([0, 1], [1, 0], n=2, device="cpu")
+    calls = {
+        "from_coo": lambda: csr.from_coo([0, 1], [1, 0], n=2),
+        "make_graph": lambda: synthetic.make_graph("uniform", scale=3),
+        "from_csr": lambda: DiGraph.from_csr(c),
+        "empty": lambda: DiGraph.empty(3),
+        "from_state_tree": lambda: DiGraph.from_state_tree(
+            DiGraph.from_csr(c, device="cpu").state_tree()
+        ),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_backend_resolution():
+    cpu = torch.device("cpu")
+    assert util.resolve_backend("auto", cpu) == "torch"
+    assert util.resolve_backend("torch", cpu) == "torch"
+    with pytest.raises(ValueError):
+        util.resolve_backend("cuda", cpu)
+    with pytest.raises(ValueError):
+        util.resolve_backend("pallas", cpu)
+
+
+def _wrapper_calls():
+    rng = np.random.default_rng(0)
+    vals = torch.from_numpy(rng.random((3, 128), dtype=np.float32))
+    src = torch.from_numpy(rng.integers(-1, 9, 50).astype(np.int32))
+    d = torch.tensor([[1, 4, 9, 2**31 - 1]], dtype=torch.int32)
+    merge = (d, torch.ones(1, 4), torch.tensor([3], dtype=torch.int32),
+             torch.tensor([[2, 4, 2**31 - 1, 2**31 - 1]], dtype=torch.int32),
+             torch.full((1, 4), 5.0), torch.tensor([[0, 1, 0, 0]], dtype=torch.int32))
+    return {
+        "tile_cumsum": (lambda: sw_kernel.tile_cumsum(vals),
+                        lambda: sw_kernel.tile_cumsum_torch(vals)),
+        "count_degrees": (lambda: cb_kernel.count_degrees(src, 8),
+                          lambda: cb_kernel.count_degrees_torch(src, 8)),
+        "merge_rows": (lambda: su_kernel.merge_rows(*merge),
+                       lambda: su_kernel.merge_rows_torch(*merge)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(KERNELS))
+def test_cpu_tensor_takes_the_plain_version(name):
+    kernel_call, plain_call = _wrapper_calls()[name]
+    KERNELS[name].launches = 0
+    got, exp = kernel_call(), plain_call()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    exp if isinstance(exp, tuple) else (exp,)):
+        assert torch.equal(a, b)
+    assert KERNELS[name].launches == 0
+
+
+def test_cpu_slice_launches_no_kernel():
+    for k in KERNELS.values():
+        k.launches = 0
+    src, dst, wgt, n = synthetic.make_coo("social", scale=7, edge_factor=4, seed=1)
+    c = csr.from_coo(src, dst, wgt, n=n, dedup=False, engine="torch", device="cpu")
+    g = DiGraph.from_csr(csr.from_coo(src, dst, wgt, n=n, device="cpu"), device="cpu")
+    rng = np.random.default_rng(1)
+    g.apply(updates.plan_update(
+        inserts=edgebatch.random_insertions(rng, n, 40),
+        deletes=edgebatch.random_deletions(rng, c, 40),
+    ))
+    v = g.reverse_walk(3)
+    assert v.shape == (g.n_max_vertex() + 1,)
+    assert all(k.launches == 0 for k in KERNELS.values())

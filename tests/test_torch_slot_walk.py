@@ -1,0 +1,162 @@
+"""slot_walk parity: the port's walk engine against ``repro``'s.
+
+The port's intra-tile level (the plain version of its ``tile_cumsum`` CUDA
+kernel) against ``repro``'s Pallas ``tile_cumsum`` in interpret mode, and
+the blocked interval walk, the legacy segment-sum walk and the flat seed
+walk against ``repro``'s on the same buffers of a churned graph.
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.core import traversal as j_traversal
+from repro.core.walk_image import WalkImage as JWalkImage
+from repro.kernels.slot_walk import kernel as j_kernel
+from repro.kernels.slot_walk import ops as j_ops
+from repro_torch.core import DiGraph, WalkImage, csr, edgebatch, traversal
+from repro_torch.io import synthetic
+from repro_torch.kernels.slot_walk import kernel as sw_kernel
+from repro_torch.kernels.slot_walk import ops as sw_ops
+from repro_torch.kernels.slot_walk.ref import slot_walk_host, slot_walk_reference
+
+STEPS = 4
+
+
+@pytest.fixture(scope="module")
+def churned():
+    """A DiGraph after deletions and growing inserts (dead slots, moved
+    blocks, stale slot_rows), with its interval geometry."""
+    rng = np.random.default_rng(3)
+    src, dst = synthetic.uniform_edges(rng, 300, 2400)
+    c = csr.from_coo(src, dst, n=300, device="cpu")
+    g = DiGraph.from_csr(c, device="cpu")
+    g.remove_edges(edgebatch.random_deletions(rng, c, c.m // 3))
+    g.add_edges(edgebatch.random_insertions(rng, c.n, c.m // 4))
+    nv = g.n_max_vertex() + 1
+    starts = g.starts[:nv]
+    has = starts >= 0
+    lo = np.where(has, starts, 0).astype(np.int32)
+    hi = np.where(has, starts + g.degrees[:nv], 0).astype(np.int32)
+    oracle = traversal.reverse_walk_dense_oracle(g.to_csr().to_dense(), STEPS)[:nv]
+    return g, nv, lo, hi, oracle
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tile_cumsum_matches_pallas_interpret(seed):
+    rng = np.random.default_rng(seed)
+    vals = (rng.random((6, 128)) * 10.0 ** rng.integers(-2, 6, (6, 1))).astype(np.float32)
+    exp = np.asarray(j_kernel.tile_cumsum(jnp.asarray(vals), interpret=True))
+    t = torch.from_numpy(vals)
+    for got in (sw_kernel.tile_cumsum_torch(t), sw_kernel.tile_cumsum(t)):
+        # the MXU matmul and a sequential cumsum add in different orders:
+        # rtol 1e-5, atol 1e-6 x the tile's largest |prefix|
+        scale = np.abs(exp).max(axis=1, keepdims=True)
+        assert (np.abs(_np(got) - exp) <= 1e-5 * np.abs(exp) + 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_blocked_walk_matches_repro(churned, engine):
+    g, nv, lo, hi, oracle = churned
+    kw = {"interpret": True} if engine == "pallas" else {}
+    exp = np.asarray(j_ops.slot_walk(
+        jnp.asarray(g.dst.numpy()), jnp.asarray(g.slot_rows.numpy()), STEPS, nv,
+        backend=engine, block_lo=jnp.asarray(lo), block_hi=jnp.asarray(hi), **kw,
+    ))
+    got = sw_ops.slot_walk(g.dst, g.slot_rows, STEPS, nv,
+                           block_lo=torch.from_numpy(lo), block_hi=torch.from_numpy(hi))
+    np.testing.assert_allclose(_np(got), exp, rtol=1e-4)
+    np.testing.assert_allclose(_np(got), oracle, rtol=1e-4)
+
+
+def test_multi_walk_matches_repro(churned):
+    g, nv, lo, hi, _ = churned
+    v0 = np.random.default_rng(4).random((3, nv)).astype(np.float32)
+    exp = np.asarray(j_ops.slot_walk(
+        jnp.asarray(g.dst.numpy()), jnp.asarray(g.slot_rows.numpy()), STEPS, nv,
+        backend="xla", block_lo=jnp.asarray(lo), block_hi=jnp.asarray(hi),
+        visits0=jnp.asarray(v0), normalize=True,
+    ))
+    got = g.reverse_walk(STEPS, visits0=torch.from_numpy(v0), normalize=True,
+                         auto_compact=False)
+    assert tuple(got.shape) == (3, nv)
+    np.testing.assert_allclose(_np(got), exp, rtol=1e-4)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_segment_sum_walks_match_repro(churned, multi):
+    g, nv, _, _, oracle = churned
+    d, r = g.dst.numpy(), g.slot_rows.numpy()
+    hi = min(1 << int(np.ceil(np.log2(g.layout.bump))), g.cap_e)
+    if multi:
+        v0 = np.random.default_rng(5).random((2, nv)).astype(np.float32)
+        exp = np.asarray(j_ops.slot_walk_multi_xla(
+            jnp.asarray(d), jnp.asarray(r), jnp.asarray(v0), STEPS, nv, edges_hi=hi))
+        got = sw_ops.slot_walk(g.dst, g.slot_rows, STEPS, nv, edges_hi=hi,
+                               visits0=torch.from_numpy(v0))
+        host = slot_walk_host(d, r, STEPS, nv, edges_hi=hi, visits0=v0)
+    else:
+        exp = np.asarray(j_ops.slot_walk_xla(jnp.asarray(d), jnp.asarray(r), STEPS, nv,
+                                             edges_hi=hi))
+        got = sw_ops.slot_walk(g.dst, g.slot_rows, STEPS, nv, edges_hi=hi)
+        host = slot_walk_host(d, r, STEPS, nv, edges_hi=hi)
+        np.testing.assert_allclose(_np(got), oracle, rtol=1e-4)
+        np.testing.assert_allclose(
+            _np(slot_walk_reference(g.dst, g.slot_rows, STEPS, nv)), oracle, rtol=1e-4)
+    np.testing.assert_allclose(_np(got), exp, rtol=1e-4)
+    np.testing.assert_allclose(host, exp, rtol=1e-4)
+
+
+def test_flat_seed_walk_matches_repro(churned):
+    g, nv, _, _, oracle = churned
+    d, r = g.dst.numpy(), g.slot_rows.numpy()
+    exp = np.asarray(j_traversal.reverse_walk_flat(jnp.asarray(d), jnp.asarray(r), STEPS, nv))
+    got = traversal.reverse_walk_flat(g.dst, g.slot_rows, STEPS, nv)
+    np.testing.assert_allclose(_np(got), exp, rtol=1e-4)
+    np.testing.assert_allclose(_np(got), oracle, rtol=1e-4)
+
+
+def test_compensated_scan_is_near_exact():
+    rng = np.random.default_rng(9)
+    x = (rng.random((2, 3000)) * 10.0 ** rng.integers(-3, 9, (2, 3000))).astype(np.float32)
+    hi, lo = sw_ops._comp_scan(torch.from_numpy(x))
+    exact = np.cumsum(x.astype(np.float64), axis=1)
+    got = hi.numpy().astype(np.float64) + lo.numpy().astype(np.float64)
+    np.testing.assert_allclose(got, exact, rtol=1e-9)
+
+
+def test_blocked_path_no_prefix_cancellation():
+    """Large prefix totals must not leak float error into small row sums.
+
+    A naive global f32 cumsum gives P[hi]-P[lo] errors of ~ulp(total); the
+    two-level compensated prefix keeps integer-valued counts exact.
+    """
+    rng = np.random.default_rng(1)
+    src, dst = synthetic.uniform_edges(rng, 1024, 10240)
+    c = csr.from_coo(src, dst, n=1024, device="cpu")
+    g = DiGraph.from_csr(c, device="cpu")
+    g.remove_edges(edgebatch.random_deletions(rng, c, int(c.m * 0.85)))
+    got = g.reverse_walk(6, auto_compact=False).numpy()
+    nv = g.n_max_vertex() + 1
+    exp = traversal.reverse_walk_dense_oracle(g.to_csr().to_dense(), 6)[:nv]
+    np.testing.assert_allclose(got, exp, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dense", [None, True])
+def test_walk_image_from_csr_arrays_matches_repro(dense):
+    c = synthetic.make_graph("web", scale=8, edge_factor=4, seed=6, device="cpu")
+    o, d, w = c.offsets.numpy(), c.dst.numpy(), c.wgt.numpy()
+    img = WalkImage.from_csr_arrays(o, d, w, c.n, device="cpu", dense=dense)
+    jimg = JWalkImage.from_csr_arrays(o, d, w, c.n, engine="host", dense=dense)
+    for f in ("dst", "wgt", "rows"):
+        np.testing.assert_array_equal(getattr(img, f).numpy(), np.asarray(getattr(jimg, f)))
+    for f in ("starts", "caps", "degs", "nv", "bump", "live"):
+        np.testing.assert_array_equal(getattr(img, f), getattr(jimg, f))
+    assert img.edges_hi() == jimg.edges_hi() and img.occupancy == jimg.occupancy
+    exp = traversal.reverse_walk_dense_oracle(c.to_dense(), STEPS)
+    got = traversal.reverse_walk_image(img, STEPS).numpy()
+    np.testing.assert_allclose(got, exp, rtol=1e-4)
