@@ -17,9 +17,20 @@ SNAP's soc-LiveJournal1):
           taken first must not change
   walk    the 42-step reverse walk (timed; unnormalised it overflows f32),
           and the normalised walk held against the plain tile cumsum
+  walk_slotted
+          the interval-less 42-step walk over the same arena through the
+          slot_walk_partials kernel (timed), one walk and four batched,
+          held against the plain partials and the image walk; the split
+          of one step (gather, partials, seam fold)
+  walk_bsr
+          a road graph at scale 24 (16,777,216 vertices, ~36.9M directed
+          edges, the class of SuiteSparse's asia_osm) re-blocked into
+          128x128 BSR tiles on the card (~393K tiles, ~25.8 GB), and the
+          42-step walk as iterated bsr_spmm launches (timed), held against
+          the plain SpMM walk and the road DiGraph's walks
 
-then holds each kernel against its plain PyTorch version at the shapes the
-main path gave it and times both.  The line before the last is
+then holds each kernel against its plain PyTorch version at the shapes its
+path gave it and times both.  The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device it exits non-zero at once.
@@ -38,6 +49,8 @@ SCALE = 21
 EDGE_FACTOR = 16
 SEED = 42
 WALK_STEPS = 42
+#: the road graph of the BSR walk: 2^24 vertices
+ROAD_SCALE = 24
 #: H100 SXM device-memory rate (NVIDIA data sheet) for the byte bounds
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM non-tensor float32 rate, used for the operation bounds
@@ -47,6 +60,16 @@ VECTOR_OPS_PER_S = 67e12
 #: row whose exact sum is 0 keeps the rounding residue of its tile's prefix
 #: (~ulp of the tile sum, added in another order), hence the small atol
 WALK_RTOL, WALK_ATOL = 5e-4, 1e-6
+#: unnormalised walks whose steps sum only non-negative terms, in another
+#: order (the road graph's BSR walk against its plain version and against
+#: the interval-less walk): no cancellation, a few ulps a step
+EXACT_WALK_RTOL = 1e-4
+#: slot_walk_partials: a run of n <= 128 non-negative terms summed in two
+#: orders; each is within (n-1)*2^-24 of the exact sum
+PARTIALS_RTOL = 2 * 127 * 2.0**-24
+#: bsr_spmm: each output sums the few non-zero products of a row in
+#: another order (non-negative terms)
+SPMM_RTOL = 1e-5
 
 
 def say(phase: str, **kv) -> None:
@@ -56,6 +79,15 @@ def say(phase: str, **kv) -> None:
 def sync_s(t0: float) -> float:
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def expect_launches(name: str, n: int, phase: str) -> None:
+    """The wrapper's count, zeroed by ``counted`` on entry, is ``n``."""
+    from repro_torch.kernels import KERNELS
+
+    if KERNELS[name].launches != n:
+        raise AssertionError(
+            f"{phase}: {name} launched {KERNELS[name].launches} times, expected {n}")
 
 
 def checksum(t: torch.Tensor) -> int:
@@ -119,10 +151,13 @@ def largest_call(module, name: str, size):
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    start = time.perf_counter()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
     from repro_torch.io import synthetic
     from repro_torch.kernels import KERNELS, _build
+    from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.csr_build import kernel as cb_kernel
     from repro_torch.kernels.slot_update import kernel as su_kernel
     from repro_torch.kernels.slot_update import ops as su_ops
@@ -255,6 +290,154 @@ def main() -> None:
         ms=f"{times['walk_ms']:.1f}", normalized_max_abs_diff=f"{float(diff.max()):.3e}",
         normalized_max_rel_diff_nonzero=f"{rel:.3e}")
 
+    # 7. walk_slotted (paper task 4, interval-less rank tiles) -------------
+    phase_s = {}
+    p0 = time.perf_counter()
+    ehi = img.edges_hi()
+    traversal.reverse_walk_slotted(g.dst, g.slot_rows, 1, nv, edges_hi=ehi)  # warm-up
+    t0 = time.perf_counter()
+    with counted(KERNELS, launches):
+        vs = traversal.reverse_walk_slotted(g.dst, g.slot_rows, WALK_STEPS, nv, edges_hi=ehi)
+    times["walk_slotted_ms"] = sync_s(t0) * 1e3
+    expect_launches("slot_walk_partials", WALK_STEPS, "walk_slotted")
+    if tuple(vs.shape) != (nv,):
+        raise AssertionError(f"walk_slotted: shape {tuple(vs.shape)} != ({nv},)")
+    del vs
+    vsk = traversal.reverse_walk_slotted(g.dst, g.slot_rows, WALK_STEPS, nv, edges_hi=ehi,
+                                         normalize=True, backend="cuda")
+    vsp = traversal.reverse_walk_slotted(g.dst, g.slot_rows, WALK_STEPS, nv, edges_hi=ehi,
+                                         normalize=True, backend="torch")
+    if not bool(torch.isfinite(vsk).all()):
+        raise AssertionError("walk_slotted: non-finite normalised visits")
+    torch.testing.assert_close(vsk, vsp, rtol=WALK_RTOL, atol=WALK_ATOL)
+    torch.testing.assert_close(vsk, vk, rtol=WALK_RTOL, atol=WALK_ATOL)
+    v0 = np.ones((4, nv), np.float32)
+    v0[1:] = np.random.default_rng(SEED).random((3, nv), dtype=np.float32)
+    v0 = torch.from_numpy(v0).to(dev)
+    batched = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    with counted(KERNELS, batched):
+        vbk = traversal.reverse_walk_slotted(g.dst, g.slot_rows, WALK_STEPS, nv, edges_hi=ehi,
+                                             normalize=True, visits0=v0)
+    times["walk_slotted_b4_ms"] = sync_s(t0) * 1e3
+    expect_launches("slot_walk_partials", WALK_STEPS, "walk_slotted/B=4")
+    vbp = traversal.reverse_walk_slotted(g.dst, g.slot_rows, WALK_STEPS, nv, edges_hi=ehi,
+                                         normalize=True, visits0=v0, backend="torch")
+    if tuple(vbk.shape) != (4, nv):
+        raise AssertionError(f"walk_slotted/B=4: shape {tuple(vbk.shape)} != (4, {nv})")
+    torch.testing.assert_close(vbk, vbp, rtol=WALK_RTOL, atol=WALK_ATOL)
+    torch.testing.assert_close(vbk[0], vsk, rtol=WALK_RTOL, atol=WALK_ATOL)
+    del vbk, vbp, v0, vsp
+    # one step's split, at the walk's shapes (normalised visits as input)
+    rows_f, gidx_f = sw_ops._prep(g.dst, g.slot_rows, nv, ehi)
+    sw_rows = rows_f.to(torch.int32).reshape(-1, sw_kernel.EB)
+    del rows_f
+    vis = torch.cat([vsk, vsk.new_zeros(1)])[None]
+    gather = lambda: vis.index_select(1, gidx_f).reshape(-1, sw_kernel.EB)  # noqa: E731
+    sw_vals = gather()
+    part, rank = sw_kernel.slot_walk_partials(sw_rows, sw_vals, nv)
+    split = dict(
+        step_ms=time_ms(lambda: sw_ops._fold_live(
+            *sw_kernel.slot_walk_partials(sw_rows, gather(), nv), 1, nv)),
+        gather_ms=time_ms(gather),
+        partials_ms=time_ms(lambda: sw_kernel.slot_walk_partials(sw_rows, sw_vals, nv)),
+        fold_ms=time_ms(lambda: sw_ops._fold_live(part, rank, 1, nv)),
+    )
+    live = float((rank < nv).float().mean())
+    del part, rank, gidx_f, vis
+    say("walk_slotted", steps=WALK_STEPS, nv=nv, edges_hi=ehi, tiles=sw_rows.shape[0],
+        ms=f"{times['walk_slotted_ms']:.1f}", b4_ms=f"{times['walk_slotted_b4_ms']:.1f}",
+        **{k: f"{v_:.4f}" for k, v_ in split.items()},
+        fold_share=f"{split['fold_ms'] / split['step_ms']:.3f}",
+        live_rank_share=f"{live:.4f}",
+        vs_plain="rtol 5e-4", vs_image_walk="rtol 5e-4", b4_vs_plain="rtol 5e-4")
+    phase_s["walk_slotted_s"] = time.perf_counter() - p0
+
+    # 8. walk_bsr (paper task 4 as iterated block-sparse SpMM) ------------
+    p0 = t0 = time.perf_counter()
+    rsrc, rdst, _, rn = synthetic.make_coo("road", scale=ROAD_SCALE, seed=SEED,
+                                           weighted=False)
+    road_gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    road = csr.from_coo(rsrc, rdst, n=rn, device=dev)  # dedup: one entry per pair
+    road_dedup_s = time.perf_counter() - t0
+    del rsrc, rdst
+    t0 = time.perf_counter()
+    bsr = bsr_ops.csr_to_bsr(road)
+    times["bsr_build_ms"] = sync_s(t0) * 1e3
+    nnzb = bsr.block_cols.shape[0]
+    n_rb = bsr.row_ptr.shape[0] - 1
+    say("walk_bsr", graph="road", scale=ROAD_SCALE, n=rn, m=road.m, nnzb=nnzb,
+        tiles_gb=f"{bsr.blocks.numel() * 4 / 1e9:.2f}",
+        blocks_per_row_block=f"{nnzb / n_rb:.4f}", max_blocks_per_row=bsr.max_blocks_per_row,
+        host_gen_s=f"{road_gen_s:.1f}", host_dedup_s=f"{road_dedup_s:.1f}",
+        build_ms=f"{times['bsr_build_ms']:.1f}")
+    bsr_ops.reverse_walk_bsr(bsr, 1, rn)  # warm-up
+    t0 = time.perf_counter()
+    with counted(KERNELS, launches):
+        vb = bsr_ops.reverse_walk_bsr(bsr, WALK_STEPS, rn)
+    times["walk_bsr_ms"] = sync_s(t0) * 1e3
+    expect_launches("bsr_spmm", WALK_STEPS, "walk_bsr")
+    if tuple(vb.shape) != (rn,) or not bool((torch.isfinite(vb) & (vb > 0)).all()):
+        raise AssertionError("walk_bsr: visits not finite and positive of shape (n,)")
+    vbp = bsr_ops.reverse_walk_bsr(bsr, WALK_STEPS, rn, backend="torch")
+    torch.testing.assert_close(vb, vbp, rtol=EXACT_WALK_RTOL, atol=0.0)
+    rel_plain = float(((vb - vbp).abs() / vbp).max())
+    del vbp
+    rg = DiGraph.from_csr(road, device=dev)
+    rnv = rg.n_max_vertex() + 1
+    vr = traversal.reverse_walk_slotted(rg.dst, rg.slot_rows, WALK_STEPS, rnv,
+                                        edges_hi=rg.to_walk_image().edges_hi())
+    torch.testing.assert_close(vb[:rnv], vr, rtol=EXACT_WALK_RTOL, atol=0.0)
+    rel_slotted = float(((vb[:rnv] - vr).abs() / vr).max())
+    # the image walk's prefix differences keep ~ulp of a tile's running sum:
+    # on a road graph the visits span ~10 orders of magnitude, so small rows
+    # lose their digits (repro's DiGraph walk does the same); held after
+    # normalising, at the image walk's own tolerances
+    vi = rg.reverse_walk(WALK_STEPS)
+    rel_image = float(((vb[:rnv] - vi).abs() / vb[:rnv]).max())
+    torch.testing.assert_close(vi / vi.max(), vb[:rnv] / vb.max(), rtol=WALK_RTOL,
+                               atol=WALK_ATOL)
+    del vr, vi, rg
+    say("walk_bsr", steps=WALK_STEPS, ms=f"{times['walk_bsr_ms']:.1f}",
+        max_rel_diff_plain=f"{rel_plain:.3e}", max_rel_diff_slotted=f"{rel_slotted:.3e}",
+        max_rel_diff_image_walk=f"{rel_image:.3e}", vs_plain="rtol 1e-4",
+        vs_slotted="rtol 1e-4", vs_image_walk="normalised, rtol 5e-4")
+
+    # bsr_spmm against its plain version at the walk's shapes, while the
+    # tiles are on the card (freed before the other kernel rows)
+    x = torch.zeros((bsr.n_cols, 8), dtype=torch.float32, device=dev)
+    x[:rn, 0] = vb / vb.max()
+    del vb
+    bargs = (bsr.row_ptr, bsr.block_cols, bsr.blocks, x)
+    got, ref = bsr_kernel.bsr_spmm(*bargs, d_tile=8), bsr_kernel.bsr_spmm_torch(*bargs)
+    torch.testing.assert_close(got, ref, rtol=SPMM_RTOL, atol=0.0)
+    bsr_row = dict(
+        name="bsr_spmm", source="src/repro_torch/csrc/bsr_spmm.cu",
+        replaces="src/repro/kernels/bsr_spmm/kernel.py:53",
+        shape=f"nnzb={nnzb} R={n_rb} D=8 d_tile=8", max_abs_err=float((got - ref).abs().max()),
+        tolerance="rtol 1e-5",
+        ms=time_ms(lambda: bsr_kernel.bsr_spmm(*bargs, d_tile=8)),
+        plain_ms=time_ms(lambda: bsr_kernel.bsr_spmm_torch(*bargs), reps=5),
+        library_ms=None,
+        bytes=nnzb * 128 * 128 * 4 + (n_rb + 1) * 4 + nnzb * 4 + x.numel() * 4 + got.numel() * 4,
+        ops=2 * nnzb * 128 * 128 * 8,
+    )
+    try:  # the yardstick only: PyTorch's own BSR product, if it runs on CUDA
+        a_sp = torch.sparse_bsr_tensor(bsr.row_ptr, bsr.block_cols, bsr.blocks[:nnzb],
+                                       size=(bsr.n_rows, bsr.n_cols), check_invariants=False)
+        lib = a_sp @ x
+        torch.testing.assert_close(lib, ref, rtol=SPMM_RTOL, atol=0.0)
+        bsr_row["library_ms"] = time_ms(lambda: a_sp @ x, reps=5)
+        lib_note = "torch.sparse_bsr_tensor @ x"
+        del lib, a_sp
+    except (RuntimeError, NotImplementedError, AssertionError) as e:
+        lib_note = f"none: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    say("walk_bsr", library=lib_note)
+    del got, ref, x, bargs, bsr, road
+    torch.cuda.empty_cache()
+    phase_s["walk_bsr_s"] = time.perf_counter() - p0
+
     say("main_path", **{f"{k}_launches": v_ for k, v_ in launches.items()})
     missing = [k for k, v_ in launches.items() if v_ == 0]
     if missing:
@@ -271,9 +454,18 @@ def main() -> None:
     exp = traversal.reverse_walk_dense_oracle(sg.to_csr().to_dense(), 6)
     got = util.host(sg.reverse_walk(6))
     np.testing.assert_allclose(got, exp[: got.shape[0]], rtol=WALK_RTOL)
-    say("reference", graph="social scale 10", steps=6, dense_oracle="agrees")
+    snv = sg.n_max_vertex() + 1
+    got = util.host(traversal.reverse_walk_slotted(sg.dst, sg.slot_rows, 6, snv))
+    np.testing.assert_allclose(got, exp[:snv], rtol=1e-4)
+    rs, rd, _, rsn = synthetic.make_coo("road", scale=10, seed=7, weighted=False)
+    rc = csr.from_coo(rs, rd, n=rsn, device=dev)
+    got = util.host(bsr_ops.reverse_walk_bsr(bsr_ops.csr_to_bsr(rc), 6, rsn))
+    np.testing.assert_allclose(
+        got, traversal.reverse_walk_dense_oracle(rc.to_dense(), 6), rtol=1e-5)
+    say("reference", graphs="social scale 10 (image and slotted walks), road scale 10 (BSR)",
+        steps=6, dense_oracle="agrees")
 
-    # 7. kernels against their plain versions at the main path's shapes ---
+    # 9. kernels against their plain versions at the main path's shapes ---
     gidx = sw_ops._prep_gidx(g.dst, nv, img.edges_hi())
     vals = torch.cat([vk, vk.new_zeros(1)]).index_select(0, gidx.reshape(-1))
     vals = vals.reshape(-1, sw_kernel.EB).contiguous()
@@ -329,12 +521,34 @@ def main() -> None:
         bytes=src_d.numel() * 4 + n * 4, ops=src_d.numel(),
     ))
 
+    got, ref = (sw_kernel.slot_walk_partials(sw_rows, sw_vals, nv),
+                sw_kernel.slot_walk_partials_torch(sw_rows, sw_vals, nv))
+    if not torch.equal(got[1], ref[1]):
+        raise AssertionError("slot_walk_partials: rank_rows differ from the plain version")
+    torch.testing.assert_close(got[0], ref[0], rtol=PARTIALS_RTOL, atol=0.0)
+    nz = ref[0] != 0
+    rows.append(dict(
+        name="slot_walk_partials", source="src/repro_torch/csrc/slot_walk_partials.cu",
+        replaces="src/repro/kernels/slot_walk/kernel.py:83",
+        shape=f"[{sw_rows.shape[0]},{sw_rows.shape[1]}] i32+f32",
+        max_abs_err=float((got[0] - ref[0]).abs().max()),
+        max_rel_err=float(((got[0] - ref[0]).abs()[nz] / ref[0][nz]).max()),
+        tolerance="rank_rows bit-exact, partials rtol 254*2^-24",
+        ms=split["partials_ms"],
+        plain_ms=time_ms(lambda: sw_kernel.slot_walk_partials_torch(sw_rows, sw_vals, nv)),
+        library_ms=None,
+        bytes=sw_rows.numel() * 16, ops=sw_rows.numel(),
+    ))
+    del got, ref, nz
+    rows.append(bsr_row)
+
     kernels = []
     for r in rows:
         bytes_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = r["ops"] / VECTOR_OPS_PER_S * 1e3
         say("kernel", name=r["name"], shape=r["shape"], launches=launches[r["name"]],
             max_abs_err=r["max_abs_err"], tolerance=r["tolerance"],
+            **({"max_rel_err": f"{r['max_rel_err']:.3e}"} if "max_rel_err" in r else {}),
             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             library_ms="none" if r["library_ms"] is None else f"{r['library_ms']:.4f}",
             bound_ms=f"{max(bytes_ms, ops_ms):.4f}")
@@ -346,8 +560,10 @@ def main() -> None:
             library_ms=r["library_ms"],
         ))
     say("main_path_ms", **{k: f"{v_:.2f}" for k, v_ in times.items()})
+    say("wall", total_s=f"{time.perf_counter() - start:.1f}",
+        **{k: f"{v_:.1f}" for k, v_ in phase_s.items()})
 
-    # 8-9. result lines ---------------------------------------------------
+    # 10. result lines ---------------------------------------------------
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,15 @@
 ``KERNELS`` names each CUDA kernel wrapper; a wrapper's ``launches``
 attribute counts the times it launched its kernel.
 """
+from .bsr_spmm.kernel import bsr_spmm
 from .csr_build.kernel import count_degrees
 from .slot_update.kernel import merge_rows
-from .slot_walk.kernel import tile_cumsum
+from .slot_walk.kernel import slot_walk_partials, tile_cumsum
 
 KERNELS = {
     "tile_cumsum": tile_cumsum,
     "merge_rows": merge_rows,
     "count_degrees": count_degrees,
+    "slot_walk_partials": slot_walk_partials,
+    "bsr_spmm": bsr_spmm,
 }

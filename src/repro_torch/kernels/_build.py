@@ -38,6 +38,8 @@ SIGNATURES = {
     "repro_count_degrees": (_P, _L, _I, _P, _P),
     "repro_merge_rows": (_P, _P, _P, _P, _P, _P, _L, _I, _I,
                          _P, _P, _P, _P, _I, _P),
+    "repro_slot_walk_partials": (_P, _P, _L, _L, _I, _P, _P, _P),
+    "repro_bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

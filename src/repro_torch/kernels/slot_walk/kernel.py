@@ -1,11 +1,17 @@
-"""tile_cumsum: the intra-tile prefix level of the interval walk step.
+"""The slot walk's two tile kernels.
 
-``tile_cumsum`` launches the hand-written CUDA kernel
-(``csrc/tile_cumsum.cu``) for CUDA tensors and uses its plain PyTorch
-version, ``tile_cumsum_torch``, only for CPU tensors.  It replaces the
-TPU kernel ``repro/kernels/slot_walk/kernel.py::tile_cumsum`` (one
-triangular MXU matmul per tile).  ``tile_cumsum.launches`` counts kernel
-launches.
+* ``tile_cumsum``: the intra-tile prefix level of the interval walk step
+  (``csrc/tile_cumsum.cu``).  It replaces the TPU kernel
+  ``repro/kernels/slot_walk/kernel.py::tile_cumsum`` (one triangular MXU
+  matmul per tile).
+* ``slot_walk_partials``: the per-tile run reduction of the interval-less
+  walk step (``csrc/slot_walk_partials.cu``).  It replaces the TPU kernel
+  ``repro/kernels/slot_walk/kernel.py::slot_walk_partials`` (one one-hot
+  rank MXU matmul per tile).
+
+Each wrapper launches its CUDA kernel for CUDA tensors and uses its plain
+PyTorch version (``*_torch``) only for CPU tensors; its ``launches``
+attribute counts kernel launches.
 """
 from __future__ import annotations
 
@@ -46,3 +52,65 @@ def tile_cumsum(vals: torch.Tensor) -> torch.Tensor:
 
 
 tile_cumsum.launches = 0
+
+
+def slot_walk_partials_torch(rows: torch.Tensor, vals: torch.Tensor, sink: int):
+    """Plain version: run flags, cumsum to ranks, ``scatter_add`` per tile.
+
+    ``rows`` [T, EB] int32 in [0, sink], ``vals`` [B*T, EB] f32 (tile t
+    reads rows[t % T]) -> (partials [B*T, EB] f32, rank_rows [T, EB] int32).
+    """
+    t = rows.shape[0]
+    start = torch.ones_like(rows, dtype=torch.bool)
+    start[:, 1:] = rows[:, 1:] != rows[:, :-1]
+    rank = torch.cumsum(start, dim=1) - 1  # int64, [T, EB]
+    live = (rows >= 0) & (rows < sink)
+    # every slot of a run writes the run's (one) value
+    rank_rows = torch.full_like(rows, sink).scatter_(
+        1, rank, torch.where(live, rows, sink))
+    b = vals.shape[0] // max(t, 1)
+    partials = torch.zeros((b, t, EB), dtype=torch.float32, device=vals.device)
+    partials.scatter_add_(2, rank.expand(b, t, EB), vals.reshape(b, t, EB))
+    return partials.reshape(b * t, EB), rank_rows
+
+
+def slot_walk_partials(rows: torch.Tensor, vals: torch.Tensor, sink: int):
+    """One walk step's tile reduction: (rows, vals, sink) -> (partials, rank_rows).
+
+    ``rows`` [T, EB] int32 slot owners (dead and pad slots carry ``sink``),
+    ``vals`` [B*T, EB] f32 gathered visits; tile t of ``vals`` is owned by
+    ``rows[t % T]``, so B walks share one rows operand.  ``partials`` [B*T,
+    EB] holds each tile's per-rank run sums (0 for unused ranks) and
+    ``rank_rows`` [T, EB] each rank's row (``sink`` for dead or unused
+    ranks).
+    """
+    sink = int(sink)
+    if rows.device.type == "cpu":
+        return slot_walk_partials_torch(rows, vals, sink)
+    _build.require(rows, "rows", torch.int32, 2)
+    _build.require(vals, "vals", torch.float32, 2)
+    t = rows.shape[0]
+    if rows.shape[1] != EB or vals.shape[1] != EB:
+        raise ValueError(f"rows and vals: tiles must be {EB} wide")
+    if t == 0 or vals.shape[0] % t:
+        raise ValueError(
+            f"vals: {vals.shape[0]} tiles is not a multiple of rows' {t}")
+    if not 0 <= sink < 2**31:
+        raise ValueError(f"sink must fit int32, got {sink}")
+    if rows.data_ptr() % 16 or vals.data_ptr() % 16:  # 16-byte vector loads
+        raise ValueError("rows and vals: data pointers not 16-byte aligned")
+    partials = torch.empty_like(vals)
+    rank_rows = torch.empty_like(rows)
+    lib = _build.library()
+    _build.check(
+        lib.repro_slot_walk_partials(
+            rows.data_ptr(), vals.data_ptr(), vals.shape[0], t, sink,
+            partials.data_ptr(), rank_rows.data_ptr(), _build.stream(vals),
+        ),
+        "slot_walk_partials",
+    )
+    slot_walk_partials.launches += 1
+    return partials, rank_rows
+
+
+slot_walk_partials.launches = 0

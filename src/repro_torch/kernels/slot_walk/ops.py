@@ -8,10 +8,13 @@ plane plus O(V) interval reads.  Its intra-tile level is the
 ``tile_cumsum`` CUDA kernel (``backend="cuda"``) or its plain PyTorch
 version (``backend="torch"``); ``auto`` picks by the tensors' device.
 
-The legacy segment-sum paths (``slot_walk_segsum`` and its batched form,
-``index_add_``) serve interval-less callers with ``backend="torch"``.
-Their kernel, ``repro``'s ``slot_walk_partials``, is not ported yet, so
-an interval-less walk with ``backend="cuda"`` raises.
+Interval-less callers (raw arenas, the seed baseline) take the rank-tile
+walk (``slot_walk_ranked``, ``repro``'s ``slot_walk_pallas``): per step a
+gather, the ``slot_walk_partials`` tile reduction (the CUDA kernel, or its
+plain version for ``backend="torch"``) and a fold of the tiles' live ranks
+into rows.  The segment-sum walks (``slot_walk_segsum`` and its batched
+form, one ``index_add_`` of every slot, ``repro``'s ``xla`` backend) stay
+as the plain formulation the tests hold the rank-tile walk against.
 
 Walks only process ``edges_hi`` slots (the arena's bump prefix, quantized
 by the caller) instead of the full buffer.
@@ -75,6 +78,59 @@ def slot_walk_segsum(dst, slot_rows, steps: int, num_vertices: int, *,
     return slot_walk_multi_segsum(
         dst, slot_rows, ones, steps, num_vertices,
         edges_hi=edges_hi, normalize=normalize,
+    )[0]
+
+
+def _fold_live(part, rank_rows, b: int, num_vertices: int) -> torch.Tensor:
+    """Seam fold: add each tile's per-rank partials into their rows.
+
+    Only live ranks (``rank_rows < sink``) are folded.  ``repro`` folds all
+    T*EB entries with ``segment_sum(part, min(rank, sink))`` and slices the
+    sink row off; on a large graph most ranks are dead, and an
+    ``index_add_`` of those would pile its atomics onto the one sink row.
+    """
+    rank = rank_rows.reshape(-1)
+    sel = torch.nonzero(rank < num_vertices).squeeze(1)
+    nxt = torch.zeros((b, num_vertices), dtype=torch.float32, device=part.device)
+    return nxt.index_add_(1, rank.index_select(0, sel),
+                          part.reshape(b, -1).index_select(1, sel))
+
+
+def slot_walk_multi_ranked(dst, slot_rows, visits0, steps: int,
+                           num_vertices: int, *, edges_hi: int,
+                           normalize: bool = False,
+                           backend: str = "auto") -> torch.Tensor:
+    """Batched rank-tile walk: ``visits0`` [B, V] -> [B, V].
+
+    The B walks' gathered tiles go to one ``slot_walk_partials`` call per
+    step; tile t of walk b is owned by ``rows[t]``, so the rows operand is
+    shared, not tiled B times.
+    """
+    backend = util.resolve_backend(backend, dst.device)
+    partials = (_kernel.slot_walk_partials if backend == "cuda"
+                else _kernel.slot_walk_partials_torch)
+    rows_f, gidx_f = _prep(dst, slot_rows, num_vertices, edges_hi)
+    rows_t = rows_f.to(torch.int32).reshape(-1, EB)
+    v = visits0.to(torch.float32)
+    b = v.shape[0]
+    zcol = torch.zeros((b, 1), dtype=torch.float32, device=v.device)
+    for _ in range(steps):
+        vals = torch.cat([v, zcol], dim=1).index_select(1, gidx_f)  # sink -> 0.0
+        part, rank = partials(rows_t, vals.reshape(-1, EB), num_vertices)
+        v = _fold_live(part, rank, b, num_vertices)
+        if normalize:
+            v = _normalize(v)
+    return v
+
+
+def slot_walk_ranked(dst, slot_rows, steps: int, num_vertices: int, *,
+                     edges_hi: int, normalize: bool = False,
+                     backend: str = "auto") -> torch.Tensor:
+    """Rank-tile walk from the all-ones vector: -> [V]."""
+    ones = torch.ones((1, num_vertices), dtype=torch.float32, device=dst.device)
+    return slot_walk_multi_ranked(
+        dst, slot_rows, ones, steps, num_vertices,
+        edges_hi=edges_hi, normalize=normalize, backend=backend,
     )[0]
 
 
@@ -209,7 +265,7 @@ def slot_walk(dst, slot_rows, steps: int, num_vertices: int, *,
     ``edges_hi`` bounds the slots processed (None: the whole buffer).
     With per-vertex block intervals (``block_lo``/``block_hi``, lo == hi
     for blockless rows) the walk takes the blocked prefix-sum step;
-    without them the segment-sum path, plain PyTorch only.  ``visits0``
+    without them the rank-tile step (``slot_walk_partials``).  ``visits0``
     [B, num_vertices] walks B vectors together and returns [B, V].
     """
     if edges_hi is None:
@@ -233,19 +289,14 @@ def slot_walk(dst, slot_rows, steps: int, num_vertices: int, *,
             dst, block_lo, block_hi, steps, num_vertices,
             edges_hi=edges_hi, normalize=normalize, backend=backend,
         )
-    if backend == "cuda":
-        raise NotImplementedError(
-            "interval-less walks need the slot_walk_partials kernel, which is "
-            "not ported yet: pass block_lo/block_hi or backend='torch'"
-        )
     if visits0 is not None:
-        return slot_walk_multi_segsum(
+        return slot_walk_multi_ranked(
             dst, slot_rows, visits0, steps, num_vertices,
-            edges_hi=edges_hi, normalize=normalize,
+            edges_hi=edges_hi, normalize=normalize, backend=backend,
         )
-    return slot_walk_segsum(
+    return slot_walk_ranked(
         dst, slot_rows, steps, num_vertices,
-        edges_hi=edges_hi, normalize=normalize,
+        edges_hi=edges_hi, normalize=normalize, backend=backend,
     )
 
 

@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DiGraph, csr, edgebatch, updates, util
+from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
+from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
+from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 from repro_torch.kernels.csr_build import kernel as cb_kernel
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
@@ -108,6 +110,11 @@ def _wrapper_calls():
     merge = (d, torch.ones(1, 4), torch.tensor([3], dtype=torch.int32),
              torch.tensor([[2, 4, 2**31 - 1, 2**31 - 1]], dtype=torch.int32),
              torch.full((1, 4), 5.0), torch.tensor([[0, 1, 0, 0]], dtype=torch.int32))
+    rows = torch.from_numpy(np.repeat(rng.integers(0, 9, (3, 16)), 8, axis=1).astype(np.int32))
+    bsr = (torch.tensor([0, 2, 2, 3], dtype=torch.int32),
+           torch.tensor([0, 1, 1], dtype=torch.int32),
+           torch.from_numpy(rng.random((3, 128, 128), dtype=np.float32)),
+           torch.from_numpy(rng.random((256, 8), dtype=np.float32)))
     return {
         "tile_cumsum": (lambda: sw_kernel.tile_cumsum(vals),
                         lambda: sw_kernel.tile_cumsum_torch(vals)),
@@ -115,6 +122,10 @@ def _wrapper_calls():
                           lambda: cb_kernel.count_degrees_torch(src, 8)),
         "merge_rows": (lambda: su_kernel.merge_rows(*merge),
                        lambda: su_kernel.merge_rows_torch(*merge)),
+        "slot_walk_partials": (lambda: sw_kernel.slot_walk_partials(rows, vals, 8),
+                               lambda: sw_kernel.slot_walk_partials_torch(rows, vals, 8)),
+        "bsr_spmm": (lambda: bsr_kernel.bsr_spmm(*bsr, d_tile=8),
+                     lambda: bsr_kernel.bsr_spmm_torch(*bsr)),
     }
 
 
@@ -142,4 +153,7 @@ def test_cpu_slice_launches_no_kernel():
     ))
     v = g.reverse_walk(3)
     assert v.shape == (g.n_max_vertex() + 1,)
+    nv = g.n_max_vertex() + 1
+    assert traversal.reverse_walk_slotted(g.dst, g.slot_rows, 3, nv).shape == (nv,)
+    assert bsr_ops.reverse_walk_bsr(bsr_ops.csr_to_bsr(g.to_csr()), 3, nv).shape == (nv,)
     assert all(k.launches == 0 for k in KERNELS.values())

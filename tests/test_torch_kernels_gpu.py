@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DiGraph, edgebatch, updates
+from repro_torch.core import DiGraph, edgebatch, traversal, updates
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
+from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
+from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 from repro_torch.kernels.csr_build import kernel as cb_kernel
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_update.ref import merge_rows_reference
@@ -20,6 +22,7 @@ from repro_torch.kernels.slot_walk import kernel as sw_kernel
 
 pytestmark = pytest.mark.gpu
 SENT = np.iinfo(np.int32).max
+PARTIALS_RTOL = 2 * 127 * 2.0**-24
 
 
 @pytest.fixture
@@ -115,3 +118,111 @@ def test_digraph_cuda_matches_plain_backend(cuda):
     # the kernel's scan adds in another order: the hub-row envelope, and
     # for rows whose exact sum is 0 the residue of their tile's prefix
     torch.testing.assert_close(v_k, v_p, rtol=5e-4, atol=1e-6)
+
+
+def _rows_tiles(rng, n_tiles, sink, kind):
+    """[T, 128] slot owners: runs of rows, dead runs carry ``sink``."""
+    if kind == "all_sink":
+        return np.full((n_tiles, 128), sink, np.int32)
+    if kind == "runs_128":  # every slot its own run
+        return (np.arange(n_tiles * 128) % sink).reshape(n_tiles, 128).astype(np.int32)
+    if kind == "hub":  # one row spanning several tiles between short runs
+        lens = rng.integers(1, 40, n_tiles * 4)
+        lens[:: 5] = 300
+    else:
+        lens = rng.integers(1, 40, n_tiles * 4)
+    ids = rng.integers(0, sink + 1, lens.shape[0])
+    flat = np.repeat(ids, lens)
+    flat = np.resize(flat, n_tiles * 128) if flat.size < n_tiles * 128 else flat
+    return flat[: n_tiles * 128].reshape(n_tiles, 128).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "all_sink", "runs_128", "hub"])
+@pytest.mark.parametrize("n_tiles", [1, 7, 4099])
+def test_slot_walk_partials_matches_plain(cuda, n_tiles, kind):
+    rng = np.random.default_rng(n_tiles)
+    sink = 1000
+    rows = torch.from_numpy(_rows_tiles(rng, n_tiles, sink, kind)).to(cuda)
+    for b in (1, 3):  # one walk, and three walks sharing the rows
+        vals = torch.from_numpy(
+            rng.uniform(0, 1e3, (b * n_tiles, 128)).astype(np.float32)).to(cuda)
+        before = KERNELS["slot_walk_partials"].launches
+        got_p, got_r = sw_kernel.slot_walk_partials(rows, vals, sink)
+        exp_p, exp_r = sw_kernel.slot_walk_partials_torch(rows, vals, sink)
+        assert KERNELS["slot_walk_partials"].launches == before + 1
+        assert torch.equal(got_r, exp_r)
+        # a run of n <= 128 non-negative terms summed in two orders (the
+        # segmented warp scan, scatter_add's atomics): each is within
+        # (n-1)*2^-24 of the exact sum, so they differ by at most this rtol
+        torch.testing.assert_close(got_p, exp_p, rtol=PARTIALS_RTOL, atol=0.0)
+
+
+def _random_bsr(rng, n_row_blocks, n_col_blocks, max_count):
+    """BSR parts with empty row-blocks and uneven counts."""
+    counts = rng.integers(0, max_count + 1, n_row_blocks)
+    counts[:: 4] = 0
+    cols = [np.sort(rng.choice(n_col_blocks, c, replace=False)) for c in counts]
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    block_cols = np.concatenate(cols).astype(np.int32)
+    blocks = rng.standard_normal((max(block_cols.size, 1), 128, 128)).astype(np.float32)
+    return row_ptr, block_cols, blocks, counts
+
+
+@pytest.mark.parametrize("d", [8, 128, 256])
+def test_bsr_spmm_matches_plain(cuda, d):
+    rng = np.random.default_rng(d)
+    row_ptr, block_cols, blocks, counts = _random_bsr(rng, 37, 29, 5)
+    x = rng.standard_normal((29 * 128, d)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (row_ptr, block_cols, blocks, x)]
+    before = KERNELS["bsr_spmm"].launches
+    got = bsr_kernel.bsr_spmm(*args, d_tile=min(d, 128))
+    exp = bsr_kernel.bsr_spmm_torch(*args)
+    assert KERNELS["bsr_spmm"].launches == before + 1
+    # FP32 FMAs in another order than bmm + index_add_: rtol 1e-5 and an
+    # atol of 1e-5 x the largest |y| for sums that cancel
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5 * float(exp.abs().max()))
+    empty = np.repeat(counts == 0, 128)
+    assert bool((got[torch.from_numpy(empty).to(cuda)] == 0).all())
+
+
+def test_bsr_walk_cuda_matches_plain(cuda):
+    """A road graph whose pow-2 max_blocks_per_row exceeds every count."""
+    c = synthetic.make_graph("road", scale=14, seed=3, weighted=False, device=cuda)
+    bsr = bsr_ops.csr_to_bsr(c)
+    counts = (bsr.row_ptr[1:] - bsr.row_ptr[:-1]).cpu().numpy()
+    assert bsr.max_blocks_per_row > counts.min()
+    before = KERNELS["bsr_spmm"].launches
+    got = bsr_ops.reverse_walk_bsr(bsr, 12, c.n, backend="cuda")
+    assert KERNELS["bsr_spmm"].launches == before + 12
+    exp = bsr_ops.reverse_walk_bsr(bsr, 12, c.n, backend="torch")
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=0.0)
+    # the interval-less walk over the same graph's arena; not the image
+    # walk, whose prefix differences lose the digits of a road graph's
+    # small rows (~5e-4 relative at 12 steps, as in repro)
+    g = DiGraph.from_csr(c, device=cuda)
+    ref = traversal.reverse_walk_slotted(g.dst, g.slot_rows, 12, c.n, backend="cuda")
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+
+
+def test_ranked_walk_cuda_matches_plain(cuda):
+    """The interval-less walk on a churned scale-10 graph: the kernel path
+    against the same glue on the plain partials, one walk and three."""
+    c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=5, device=cuda)
+    g = DiGraph.from_csr(c, device=cuda)
+    rng = np.random.default_rng(5)
+    g.apply(updates.plan_update(
+        inserts=edgebatch.random_insertions(rng, c.n, 500),
+        deletes=edgebatch.random_deletions(rng, c, 500),
+    ))
+    nv = g.n_max_vertex() + 1
+    v0 = torch.from_numpy(rng.random((3, nv)).astype(np.float32)).to(cuda)
+    for visits0 in (None, v0):
+        before = KERNELS["slot_walk_partials"].launches
+        got = traversal.reverse_walk_slotted(g.dst, g.slot_rows, 8, nv, backend="cuda",
+                                             normalize=True, visits0=visits0)
+        assert KERNELS["slot_walk_partials"].launches == before + 8
+        exp = traversal.reverse_walk_slotted(g.dst, g.slot_rows, 8, nv, backend="torch",
+                                             normalize=True, visits0=visits0)
+        # sums of non-negative terms in another order (and atomics in the
+        # fold): a few ulps a step
+        torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)

@@ -1,9 +1,10 @@
 """slot_walk parity: the port's walk engine against ``repro``'s.
 
-The port's intra-tile level (the plain version of its ``tile_cumsum`` CUDA
-kernel) against ``repro``'s Pallas ``tile_cumsum`` in interpret mode, and
-the blocked interval walk, the legacy segment-sum walk and the flat seed
-walk against ``repro``'s on the same buffers of a churned graph.
+The port's tile kernels' plain versions (``tile_cumsum``,
+``slot_walk_partials``) against ``repro``'s Pallas kernels in interpret
+mode, and the blocked interval walk, the interval-less rank-tile walk, the
+segment-sum walk and the flat seed walk against ``repro``'s on the same
+buffers of a churned graph.
 """
 import numpy as np
 import pytest
@@ -87,6 +88,83 @@ def test_multi_walk_matches_repro(churned):
     np.testing.assert_allclose(_np(got), exp, rtol=1e-4)
 
 
+SINK = 50
+
+
+def _tile_case(name):
+    """Hand-made [T, 128] rows tiles (sink = SINK) for the partials parity."""
+    rng = np.random.default_rng(len(name))
+    if name == "all_sink":
+        return np.full((2, 128), SINK)
+    if name == "distinct_128":
+        return np.stack([np.arange(128) % SINK, (np.arange(128) + 7) % (SINK + 1)])
+    if name == "one_run":
+        return np.full((3, 128), 17)
+    if name == "recurring":  # row 4 in two runs of one tile, split by row 9
+        return np.repeat([[4, 9, 4, 4, 12, SINK]], 128 // 6 + 1, axis=1)[:, :128]
+    if name == "dead_tail":  # live blocks, then a dead tail inside a block
+        r = np.concatenate([np.full(40, 3), np.full(30, 8), np.full(20, SINK),
+                            np.full(38, 11)])
+        return np.stack([r, np.roll(r, 64)])
+    lens = rng.integers(1, 30, 40)  # "random": runs across the tile seams
+    return np.repeat(rng.integers(0, SINK + 1, 40), lens)[: 4 * 128].reshape(4, 128)
+
+
+def _assert_partials_match(rows, vals, sink):
+    exp_p, exp_r = j_kernel.slot_walk_partials(
+        jnp.asarray(rows, jnp.int32), jnp.asarray(vals), sink=sink, interpret=True)
+    for fn in (sw_kernel.slot_walk_partials_torch, sw_kernel.slot_walk_partials):
+        got_p, got_r = fn(torch.from_numpy(rows.astype(np.int32)), torch.from_numpy(vals), sink)
+        np.testing.assert_array_equal(got_r.numpy(), np.asarray(exp_r))
+        # the one-hot matmul adds in another order: rtol 1e-6 plus
+        # 1e-6 x the tile's largest |value|
+        scale = np.abs(vals).max(axis=1, keepdims=True)
+        assert (np.abs(got_p.numpy() - np.asarray(exp_p))
+                <= 1e-6 * np.abs(np.asarray(exp_p)) + 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize(
+    "case", ["all_sink", "distinct_128", "one_run", "recurring", "dead_tail", "random"])
+def test_slot_walk_partials_matches_pallas_interpret(case):
+    rows = _tile_case(case)
+    vals = (np.random.default_rng(1).random(rows.shape) * 1e3).astype(np.float32)
+    _assert_partials_match(rows, vals, SINK)
+
+
+def test_slot_walk_partials_on_churned_tiles(churned):
+    g, nv, *_ = churned
+    rows_f, gidx_f = sw_ops._prep(g.dst, g.slot_rows, nv, g.layout.bump)
+    visits = np.random.default_rng(2).random(nv + 1).astype(np.float32)
+    visits[nv] = 0.0
+    vals = visits[gidx_f.numpy()].reshape(-1, 128)
+    _assert_partials_match(rows_f.numpy().reshape(-1, 128), vals, nv)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_ranked_walk_matches_repro(churned, multi):
+    """The interval-less walk (rank tiles through the plain partials, the
+    glue the CUDA kernel runs in) against ``repro``'s Pallas walk in
+    interpret mode, its segment-sum walk and the dense oracle."""
+    g, nv, _, _, oracle = churned
+    d, r = jnp.asarray(g.dst.numpy()), jnp.asarray(g.slot_rows.numpy())
+    hi = g.layout.bump
+    if multi:
+        v0 = np.random.default_rng(6).random((3, nv)).astype(np.float32)
+        exps = [j_ops.slot_walk_multi_pallas(d, r, jnp.asarray(v0), STEPS, nv,
+                                             edges_hi=hi, interpret=True),
+                j_ops.slot_walk_multi_xla(d, r, jnp.asarray(v0), STEPS, nv, edges_hi=hi)]
+        got = traversal.reverse_walk_slotted(g.dst, g.slot_rows, STEPS, nv, edges_hi=hi,
+                                             visits0=torch.from_numpy(v0))
+        assert tuple(got.shape) == (3, nv)
+    else:
+        exps = [j_ops.slot_walk_pallas(d, r, STEPS, nv, edges_hi=hi, interpret=True),
+                j_ops.slot_walk_xla(d, r, STEPS, nv, edges_hi=hi)]
+        got = traversal.reverse_walk_slotted(g.dst, g.slot_rows, STEPS, nv, edges_hi=hi)
+        np.testing.assert_allclose(_np(got), oracle, rtol=1e-4)
+    for exp in exps:
+        np.testing.assert_allclose(_np(got), np.asarray(exp), rtol=1e-4)
+
+
 @pytest.mark.parametrize("multi", [False, True])
 def test_segment_sum_walks_match_repro(churned, multi):
     g, nv, _, _, oracle = churned
@@ -96,13 +174,13 @@ def test_segment_sum_walks_match_repro(churned, multi):
         v0 = np.random.default_rng(5).random((2, nv)).astype(np.float32)
         exp = np.asarray(j_ops.slot_walk_multi_xla(
             jnp.asarray(d), jnp.asarray(r), jnp.asarray(v0), STEPS, nv, edges_hi=hi))
-        got = sw_ops.slot_walk(g.dst, g.slot_rows, STEPS, nv, edges_hi=hi,
-                               visits0=torch.from_numpy(v0))
+        got = sw_ops.slot_walk_multi_segsum(g.dst, g.slot_rows, torch.from_numpy(v0),
+                                            STEPS, nv, edges_hi=hi)
         host = slot_walk_host(d, r, STEPS, nv, edges_hi=hi, visits0=v0)
     else:
         exp = np.asarray(j_ops.slot_walk_xla(jnp.asarray(d), jnp.asarray(r), STEPS, nv,
                                              edges_hi=hi))
-        got = sw_ops.slot_walk(g.dst, g.slot_rows, STEPS, nv, edges_hi=hi)
+        got = sw_ops.slot_walk_segsum(g.dst, g.slot_rows, STEPS, nv, edges_hi=hi)
         host = slot_walk_host(d, r, STEPS, nv, edges_hi=hi)
         np.testing.assert_allclose(_np(got), oracle, rtol=1e-4)
         np.testing.assert_allclose(
