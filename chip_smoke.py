@@ -28,6 +28,20 @@ SNAP's soc-LiveJournal1):
           128x128 BSR tiles on the card (~393K tiles, ~25.8 GB), and the
           42-step walk as iterated bsr_spmm launches (timed), held against
           the plain SpMM walk and the road DiGraph's walks
+  segment_sum
+          GNN neighbour aggregation over the social CSR (each edge's row,
+          its destination's features drawn from the seed) at D = 16 and
+          D = 64 through the edge_segment_partials kernel (timed: op,
+          kernel, fold, and the library index_add_), held against float64
+          sums, the library index_add_ and the plain op
+  two_tower
+          the two-tower retrieval model at its FULL width (two 10M x 256
+          tables, towers 1024-512-256) serving serve_p99 (512 pairs),
+          serve_bulk (262,144 pairs) and retrieval_cand (one query, 10^6
+          candidates) through the embedding_bag kernel (timed, on full
+          bags), held against the plain bag (on ragged bags as well), the
+          tiled-query serve and the library embedding_bag; each tower's
+          bag time against its MLP time
 
 then holds each kernel against its plain PyTorch version at the shapes its
 path gave it and times both.  The line before the last is
@@ -70,10 +84,34 @@ PARTIALS_RTOL = 2 * 127 * 2.0**-24
 #: bsr_spmm: each output sums the few non-zero products of a row in
 #: another order (non-negative terms)
 SPMM_RTOL = 1e-5
+#: the segment sum's widths: gcn-cora's and schnet's d_hidden
+SEG_WIDTHS = (16, 64)
+#: the width whose edge_segment_partials launch fills the kernels line
+SEG_ROW_D = 16
+#: float32 unit roundoff: a sum of n terms in any order is within
+#: (n-1)*U*sum|terms| of the exact sum
+U = 2.0**-24
+#: tiles per chunk when the segment partials are held against the plain
+#: version (bounds the plain version's scratch at D = 64)
+SEG_CHECK_TILES = 1 << 16
+#: two-tower serving scores, bag kernel against the plain bag (the same
+#: MLP on pooled inputs that differ in the last bits)
+SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
+#: host-synced serve_p99 calls whose 50th and 99th percentiles are printed
+P99_CALLS = 200
+#: pairs of ragged bags (empty bags included) checked against the plain bag
+RAGGED_BATCH = 4096
 
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
+
+
+def sync_now() -> float:
+    """Host clock once the device has finished all queued work, so a timed
+    call never waits for an earlier (warm-up) call's kernels."""
+    torch.cuda.synchronize()
+    return time.perf_counter()
 
 
 def sync_s(t0: float) -> float:
@@ -153,16 +191,23 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
     start = time.perf_counter()
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.configs import two_tower_retrieval
     from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
     from repro_torch.io import synthetic
     from repro_torch.kernels import KERNELS, _build
     from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.csr_build import kernel as cb_kernel
+    from repro_torch.kernels.edge_segment_sum import kernel as seg_kernel
+    from repro_torch.kernels.edge_segment_sum import ops as seg_ops
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.slot_update import kernel as su_kernel
     from repro_torch.kernels.slot_update import ops as su_ops
     from repro_torch.kernels.slot_walk import kernel as sw_kernel
     from repro_torch.kernels.slot_walk import ops as sw_ops
+    from repro_torch.models.recsys import two_tower
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,12 +225,12 @@ def main() -> None:
         device=torch.cuda.get_device_name(0), build_s=f"{time.perf_counter() - t0:.2f}")
 
     # 2. graph -------------------------------------------------------------
-    t0 = time.perf_counter()
+    t0 = sync_now()
     src, dst, wgt, n = synthetic.make_coo(
         "social", scale=SCALE, edge_factor=EDGE_FACTOR, seed=SEED
     )
     gen_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    t0 = sync_now()
     c = csr.from_coo(src, dst, wgt, n=n, device=dev)  # make_graph's dedup CSR
     dedup_s = time.perf_counter() - t0
     say("graph", kind="social", scale=SCALE, n=n, m_raw=src.shape[0], m=c.m,
@@ -198,7 +243,7 @@ def main() -> None:
     times = {}
 
     # 3. load (paper task 1) --------------------------------------------
-    t0 = time.perf_counter()
+    t0 = sync_now()
     with counted(KERNELS, launches):
         raw = csr.from_coo(src, dst, wgt, n=n, dedup=False, engine="cuda", device=dev)
     times["load_coo_ms"] = sync_s(t0) * 1e3
@@ -207,7 +252,7 @@ def main() -> None:
         if not torch.equal(getattr(raw, f), getattr(host, f)):
             raise AssertionError(f"load: cuda engine {f} differs from the host engine")
     del host
-    t0 = time.perf_counter()
+    t0 = sync_now()
     with counted(KERNELS, launches):
         g = DiGraph.from_csr(c, device=dev)
     times["load_arena_ms"] = sync_s(t0) * 1e3
@@ -217,7 +262,7 @@ def main() -> None:
     del raw
 
     # 4. clone (paper task 2) -------------------------------------------
-    t0 = time.perf_counter()
+    t0 = sync_now()
     with counted(KERNELS, launches):
         twin = g.clone()
     times["clone_ms"] = sync_s(t0) * 1e3
@@ -248,12 +293,12 @@ def main() -> None:
         # keep the mixed batch's largest [A,W] x [A,K] merge, as dispatched
         spy = contextlib.nullcontext({}) if name != "mixed" else largest_call(
             su_ops, "merge_rows", lambda args: args[0].numel() + args[3].numel())
-        t0 = time.perf_counter()
+        t0 = sync_now()
         with counted(KERNELS, launches), spy as seen:
             _, dm = g.apply(plan)
         times[f"{name}_ms"] = sync_s(t0) * 1e3
         merge_case = seen.get("args", merge_case)
-        t0 = time.perf_counter()
+        t0 = sync_now()
         twin.apply(plan, backend="torch")
         plain_ms = sync_s(t0) * 1e3
         assert_same_state(g, twin, f"update/{name}")
@@ -270,7 +315,7 @@ def main() -> None:
 
     # 6. walk (paper task 4) --------------------------------------------
     g.reverse_walk(1)  # warm-up: allocator and interval cache
-    t0 = time.perf_counter()
+    t0 = sync_now()
     with counted(KERNELS, launches):
         v = g.reverse_walk(WALK_STEPS)
     times["walk_ms"] = sync_s(t0) * 1e3
@@ -295,7 +340,7 @@ def main() -> None:
     p0 = time.perf_counter()
     ehi = img.edges_hi()
     traversal.reverse_walk_slotted(g.dst, g.slot_rows, 1, nv, edges_hi=ehi)  # warm-up
-    t0 = time.perf_counter()
+    t0 = sync_now()
     with counted(KERNELS, launches):
         vs = traversal.reverse_walk_slotted(g.dst, g.slot_rows, WALK_STEPS, nv, edges_hi=ehi)
     times["walk_slotted_ms"] = sync_s(t0) * 1e3
@@ -315,7 +360,7 @@ def main() -> None:
     v0[1:] = np.random.default_rng(SEED).random((3, nv), dtype=np.float32)
     v0 = torch.from_numpy(v0).to(dev)
     batched = dict.fromkeys(KERNELS, 0)
-    t0 = time.perf_counter()
+    t0 = sync_now()
     with counted(KERNELS, batched):
         vbk = traversal.reverse_walk_slotted(g.dst, g.slot_rows, WALK_STEPS, nv, edges_hi=ehi,
                                              normalize=True, visits0=v0)
@@ -354,15 +399,15 @@ def main() -> None:
     phase_s["walk_slotted_s"] = time.perf_counter() - p0
 
     # 8. walk_bsr (paper task 4 as iterated block-sparse SpMM) ------------
-    p0 = t0 = time.perf_counter()
+    p0 = t0 = sync_now()
     rsrc, rdst, _, rn = synthetic.make_coo("road", scale=ROAD_SCALE, seed=SEED,
                                            weighted=False)
     road_gen_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    t0 = sync_now()
     road = csr.from_coo(rsrc, rdst, n=rn, device=dev)  # dedup: one entry per pair
     road_dedup_s = time.perf_counter() - t0
     del rsrc, rdst
-    t0 = time.perf_counter()
+    t0 = sync_now()
     bsr = bsr_ops.csr_to_bsr(road)
     times["bsr_build_ms"] = sync_s(t0) * 1e3
     nnzb = bsr.block_cols.shape[0]
@@ -373,7 +418,7 @@ def main() -> None:
         host_gen_s=f"{road_gen_s:.1f}", host_dedup_s=f"{road_dedup_s:.1f}",
         build_ms=f"{times['bsr_build_ms']:.1f}")
     bsr_ops.reverse_walk_bsr(bsr, 1, rn)  # warm-up
-    t0 = time.perf_counter()
+    t0 = sync_now()
     with counted(KERNELS, launches):
         vb = bsr_ops.reverse_walk_bsr(bsr, WALK_STEPS, rn)
     times["walk_bsr_ms"] = sync_s(t0) * 1e3
@@ -438,6 +483,260 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_s["walk_bsr_s"] = time.perf_counter() - p0
 
+    # 9. segment_sum (GNN neighbour aggregation over the social CSR) -------
+    p0 = time.perf_counter()
+    seg_rows = util.expand_rows(c.offsets, c.m)  # each edge's CSR row, ascending
+    dst_l = c.dst.long()
+    deg = c.degrees.to(torch.float64)[:, None]
+    gamma = deg * U / (1 - deg * U)  # a sum of deg terms: within gamma*sum|terms|
+    sgen = torch.Generator(device=dev).manual_seed(SEED)
+    seg_row = None
+    for d in SEG_WIDTHS:
+        h = torch.randn((n, d), generator=sgen, device=dev)
+        vals = h.index_select(0, dst_l)  # [E, d]: the symmetrised graph's messages
+        op = lambda: seg_ops.edge_segment_sum(seg_rows, vals, num_segments=n)  # noqa: E731
+        op()  # warm-up
+        t0 = sync_now()
+        with counted(KERNELS, launches):
+            out = op()
+        times[f"seg_sum_d{d}_ms"] = sync_s(t0) * 1e3
+        expect_launches("edge_segment_partials", 1, f"segment_sum/D={d}")
+        if tuple(out.shape) != (n, d) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"segment_sum/D={d}: not finite of shape ({n}, {d})")
+        op_ms = time_ms(op, reps=5)
+        lib_fn = lambda: torch.zeros((n, d), device=dev).index_add_(0, seg_rows, vals)  # noqa: E731
+        lib = lib_fn()
+        library_ms = time_ms(lib_fn, reps=5)
+        plain = seg_ops.edge_segment_sum(seg_rows, vals, num_segments=n, backend="torch")
+        # float64 sums and each row's sum of |terms|, 8 columns at a time
+        ref = torch.empty((n, d), dtype=torch.float64, device=dev)
+        absum = torch.empty_like(ref)
+        for j in range(0, d, 8):
+            hj = h[:, j:j + 8].double().index_select(0, dst_l)
+            w = hj.shape[1]
+            ref[:, j:j + w] = torch.zeros((n, w), dtype=torch.float64,
+                                          device=dev).index_add_(0, seg_rows, hj)
+            absum[:, j:j + w] = torch.zeros((n, w), dtype=torch.float64,
+                                            device=dev).index_add_(0, seg_rows, hj.abs_())
+            del hj
+        # any float32 summation of a row's deg terms is within
+        # gamma*sum|terms| of the float64 sum; two of them within twice that
+        bound = gamma * absum
+        out64, lib64 = out.double(), lib.double()
+        for what, diff, tol in (("op vs float64", out64 - ref, bound),
+                                ("index_add_ vs float64", lib64 - ref, bound),
+                                ("op vs index_add_", out64 - lib64, 2 * bound),
+                                ("op vs plain op", out64 - plain.double(), 2 * bound)):
+            if not bool((diff.abs() <= tol).all()):
+                raise AssertionError(f"segment_sum/D={d}: {what} exceeds gamma(deg)*sum|terms|")
+        err64 = float((out64 - ref).abs().max())
+        lib_err64 = float((lib64 - ref).abs().max())
+        err_lib = float((out - lib).abs().max())
+        outside = float(((out - lib).abs() > 1e-5 + 1e-5 * lib.abs()).float().mean())
+        del lib, plain, ref, absum, bound, out, out64, lib64, diff
+        pad_ms = time_ms(lambda: seg_ops._pad(seg_rows, vals, n), reps=5)
+        # the tile kernel at the op's own operands, against its plain version
+        rows_t, vals_t = seg_ops._pad(seg_rows, vals, n)
+        del vals, op, lib_fn
+        torch.cuda.empty_cache()
+        kp, kr = seg_kernel.edge_segment_partials(rows_t, vals_t, n)
+        t_tiles = rows_t.shape[0]
+        part_err = 0.0
+        for s0 in range(0, t_tiles, SEG_CHECK_TILES):
+            sl = slice(s0, s0 + SEG_CHECK_TILES)
+            pp, pr = seg_kernel.edge_segment_partials_torch(rows_t[sl], vals_t[sl], n)
+            if not torch.equal(kr[sl], pr):
+                raise AssertionError(f"edge_segment_partials/D={d}: rank_rows differ from plain")
+            ap, _ = seg_kernel.edge_segment_partials_torch(rows_t[sl], vals_t[sl].abs(), n)
+            dd = (kp[sl] - pp).abs()
+            if not bool((dd <= PARTIALS_RTOL * ap).all()):
+                raise AssertionError(
+                    f"edge_segment_partials/D={d}: partials exceed 254*2^-24*sum|terms|")
+            part_err = max(part_err, float(dd.max()))
+            del pp, pr, ap, dd
+        live = float((kr < n).float().mean())
+        fold_ms = time_ms(lambda: seg_ops._fold_live(kp, kr, n), reps=5)
+        del kp, kr
+        torch.cuda.empty_cache()
+        kernel_ms = time_ms(lambda: seg_kernel.edge_segment_partials(rows_t, vals_t, n))
+        plain_ms = time_ms(lambda: seg_kernel.edge_segment_partials_torch(rows_t, vals_t, n),
+                           reps=3)
+        say("segment_sum", D=d, E=c.m, tiles=t_tiles,
+            ms=f"{times[f'seg_sum_d{d}_ms']:.2f}", op_ms=f"{op_ms:.4f}", pad_ms=f"{pad_ms:.4f}",
+            kernel_ms=f"{kernel_ms:.4f}", fold_ms=f"{fold_ms:.4f}",
+            plain_kernel_ms=f"{plain_ms:.4f}", index_add_ms=f"{library_ms:.4f}",
+            live_rank_share=f"{live:.4f}", max_abs_err_vs_float64=f"{err64:.3e}",
+            index_add_max_abs_err_vs_float64=f"{lib_err64:.3e}",
+            max_abs_diff_vs_index_add=f"{err_lib:.3e}",
+            share_outside_1e5_of_index_add=f"{outside:.3e}",
+            partials_max_abs_err=f"{part_err:.3e}",
+            tolerance="gamma(deg)*sum|terms| (op), 254*2^-24*sum|terms| (partials)")
+        if d == SEG_ROW_D:
+            e_pad = rows_t.numel()
+            seg_row = dict(
+                name="edge_segment_partials",
+                source="src/repro_torch/csrc/edge_segment_partials.cu",
+                replaces="src/repro/kernels/edge_segment_sum/kernel.py:46",
+                shape=f"[{t_tiles},128] i32 rows + [{t_tiles},128,{d}] f32 vals",
+                max_abs_err=part_err,
+                tolerance="rank_rows bit-exact, partials 254*2^-24*sum|terms|",
+                ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes=e_pad * (4 + 4 * d + 4 * d + 4), ops=e_pad * d,
+            )
+        del rows_t, vals_t, h
+        torch.cuda.empty_cache()
+    del seg_rows, dst_l, deg, gamma
+    phase_s["segment_sum_s"] = time.perf_counter() - p0
+
+    # 10. two_tower (two-tower retrieval serving at FULL width) -----------
+    p0 = time.perf_counter()
+    cfg = two_tower_retrieval.FULL
+    tgen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = sync_now()
+    model = two_tower.init_model(cfg, generator=tgen, device=dev)
+    init_s = sync_s(t0)
+    plain_model = model.with_backend("torch")
+    kb = cfg.bag_size
+
+    def make_bags(nb: int, nf: int, vocab: int) -> torch.Tensor:
+        """Ids uniform over [-1, vocab), as the recsys cells of
+        ``src/repro/launch/steps.py`` draw them: practically full bags."""
+        return torch.randint(-1, vocab, (nb, nf, kb), generator=tgen, device=dev,
+                             dtype=torch.int32)
+
+    def make_ragged_bags(nb: int, nf: int, vocab: int) -> torch.Tensor:
+        """Bags cut to a ragged -1 tail (lengths uniform in 0..K), so empty
+        bags and the mean's count are exercised; checked, never timed."""
+        lens = torch.randint(0, kb + 1, (nb, nf, 1), generator=tgen, device=dev)
+        return torch.where(torch.arange(kb, device=dev) < lens, make_bags(nb, nf, vocab), -1)
+
+    shapes = cfg_base.RECSYS_SHAPES
+    serve = {}
+    for name in ("serve_p99", "serve_bulk"):
+        b = shapes[name]["batch"]
+        batch = {"user_bags": make_bags(b, cfg.n_user_fields, cfg.n_users),
+                 "item_bags": make_bags(b, cfg.n_item_fields, cfg.n_items)}
+        model.serve_step(batch)  # warm-up
+        t0 = sync_now()
+        with counted(KERNELS, launches):
+            scores = model.serve_step(batch)
+        times[f"{name}_ms"] = sync_s(t0) * 1e3
+        expect_launches("embedding_bag", 2, f"two_tower/{name}")
+        if tuple(scores.shape) != (b,) or not bool(torch.isfinite(scores).all()):
+            raise AssertionError(f"two_tower/{name}: scores not finite of shape ({b},)")
+        torch.testing.assert_close(scores, plain_model.serve_step(batch),
+                                   rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        serve[name] = dict(batch=batch, event_ms=time_ms(lambda: model.serve_step(batch),
+                                                         reps=20 if b < 4096 else 5))
+    # serve_p99's latency spread: host-synced calls one after another
+    p99_batch = serve["serve_p99"]["batch"]
+    lat = []
+    for _ in range(P99_CALLS):
+        t0 = sync_now()
+        model.serve_step(p99_batch)
+        lat.append(sync_s(t0) * 1e3)
+    p99_lat = np.percentile(lat, [50, 99])
+    # ragged bags: the model and the bag kernel against the plain bag
+    rag = {"user_bags": make_ragged_bags(RAGGED_BATCH, cfg.n_user_fields, cfg.n_users),
+           "item_bags": make_ragged_bags(RAGGED_BATCH, cfg.n_item_fields, cfg.n_items)}
+    scores = model.serve_step(rag)
+    if not bool(torch.isfinite(scores).all()):
+        raise AssertionError("two_tower/ragged: scores not finite")
+    torch.testing.assert_close(scores, plain_model.serve_step(rag),
+                               rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    table = model.user.table
+    # mean of <= K rows summed in two roundings (FMA, product then add):
+    # within 2*K*U*sum|row| <= 2*K*K*U*max|table| of each other
+    bag_atol = 2 * kb * kb * U * float(table.abs().max())
+    idx = rag["user_bags"].reshape(-1, kb)
+    wts = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+    got = bag_kernel.embedding_bag(table, idx, wts, "mean")
+    torch.testing.assert_close(got, bag_kernel.embedding_bag_torch(table, idx, wts, "mean"),
+                               rtol=0.0, atol=bag_atol)
+    empty = (idx < 0).all(dim=1)
+    n_empty = int(empty.sum())
+    if n_empty == 0 or bool((got[empty] != 0).any()):
+        raise AssertionError("two_tower/ragged: no empty bag, or an empty bag not pooled to 0")
+    del rag, scores, idx, wts, got, empty
+    ub = make_bags(1, cfg.n_user_fields, cfg.n_users)
+    n_cand = shapes["retrieval_cand"]["n_candidates"]
+    cb = make_bags(n_cand, cfg.n_item_fields, cfg.n_items)
+    model.score_candidates(ub, cb)  # warm-up
+    t0 = sync_now()
+    with counted(KERNELS, launches):
+        cand = model.score_candidates(ub, cb)
+    times["retrieval_ms"] = sync_s(t0) * 1e3
+    expect_launches("embedding_bag", 2, "two_tower/retrieval_cand")
+    if tuple(cand.shape) != (n_cand,) or not bool(torch.isfinite(cand).all()):
+        raise AssertionError(f"two_tower/retrieval_cand: scores not finite of shape ({n_cand},)")
+    torch.testing.assert_close(cand, plain_model.score_candidates(ub, cb),
+                               rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    pair = model.serve_step({"user_bags": ub.expand(n_cand, -1, -1).contiguous(),
+                             "item_bags": cb})
+    torch.testing.assert_close(cand, pair, rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    retrieval_event_ms = time_ms(lambda: model.score_candidates(ub, cb), reps=5)
+    del pair, cand, plain_model
+    # each tower's bag time against its MLP time, at serve_bulk
+    bulk = serve["serve_bulk"]["batch"]
+    tower_split = {}
+    for tname, tower in (("user", model.user), ("item", model.item)):
+        bags = bulk[f"{tname}_bags"]
+        pooled = two_tower.pool_fields(tower, bags, cfg)
+        tower_split[f"{tname}_bag_ms"] = time_ms(lambda: two_tower.pool_fields(tower, bags, cfg),
+                                           reps=5)
+        tower_split[f"{tname}_mlp_ms"] = time_ms(lambda: two_tower.mlp_head(tower, pooled), reps=5)
+        del pooled
+    # the bag kernel at the serve_bulk user tower's operands
+    idx = bulk["user_bags"].reshape(-1, kb)
+    wts = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+    got = bag_kernel.embedding_bag(table, idx, wts, "mean")
+    ref = bag_kernel.embedding_bag_torch(table, idx, wts, "mean")
+    torch.testing.assert_close(got, ref, rtol=0.0, atol=bag_atol)
+    valid = idx >= 0
+    n_valid = int(valid.sum())
+    offsets = torch.cumsum(valid.sum(dim=1), 0) - valid.sum(dim=1)
+    flat_ids = idx[valid].long()
+    # the bound reads each distinct row once
+    n_rows = int(torch.unique(flat_ids).numel())
+    lib_fn = lambda: torch.nn.functional.embedding_bag(  # noqa: E731
+        flat_ids, table, offsets, mode="mean")
+    lib = lib_fn()
+    torch.testing.assert_close(lib, got, rtol=0.0, atol=bag_atol)
+    torch.testing.assert_close(lib, ref, rtol=0.0, atol=bag_atol)
+    n_bags = idx.shape[0]
+    bag_row = dict(
+        name="embedding_bag", source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:61",
+        shape=(f"V={table.shape[0]} D={table.shape[1]} B={n_bags} K={kb} valid={n_valid} "
+               f"distinct={n_rows} mean"),
+        max_abs_err=float((got - ref).abs().max()), tolerance=f"atol 2*K*K*2^-24*max|table| = {bag_atol:.3e}",
+        ms=time_ms(lambda: bag_kernel.embedding_bag(table, idx, wts, "mean")),
+        plain_ms=time_ms(lambda: bag_kernel.embedding_bag_torch(table, idx, wts, "mean"), reps=5),
+        library_ms=time_ms(lib_fn),
+        bytes=n_rows * table.shape[1] * 4 + idx.numel() * 8 + n_bags * table.shape[1] * 4,
+        ops=2 * n_valid * table.shape[1],
+    )
+    say("two_tower", config=cfg.name, users=cfg.n_users, items=cfg.n_items,
+        embed_dim=cfg.embed_dim, tower_mlp="-".join(map(str, cfg.tower_mlp)),
+        tables_gb=f"{(model.user.table.numel() + model.item.table.numel()) * 4 / 1e9:.2f}",
+        init_s=f"{init_s:.2f}", serve_p99_ms=f"{times['serve_p99_ms']:.3f}",
+        serve_bulk_ms=f"{times['serve_bulk_ms']:.2f}", retrieval_ms=f"{times['retrieval_ms']:.2f}",
+        serve_p99_event_ms=f"{serve['serve_p99']['event_ms']:.4f}",
+        serve_p99_host_p50_ms=f"{p99_lat[0]:.4f}", serve_p99_host_p99_ms=f"{p99_lat[1]:.4f}",
+        serve_bulk_event_ms=f"{serve['serve_bulk']['event_ms']:.4f}",
+        retrieval_event_ms=f"{retrieval_event_ms:.4f}",
+        **{k_: f"{v_:.4f}" for k_, v_ in tower_split.items()},
+        bulk_user_valid_ids=n_valid, bulk_user_distinct_rows=n_rows,
+        ragged_batch=RAGGED_BATCH, ragged_empty_user_bags=n_empty,
+        library_embedding_bag_ms=f"{bag_row['library_ms']:.4f}",
+        vs_plain_bag=f"rtol {SCORE_RTOL}, atol {SCORE_ATOL} (timed and ragged bags)",
+        retrieval_vs_tiled_serve=f"rtol {SCORE_RTOL}, atol {SCORE_ATOL}",
+        library_vs_kernel_and_plain="agree")
+    del got, ref, lib, lib_fn, flat_ids, offsets, valid, wts, idx, table, bulk, serve, ub, cb
+    del model
+    torch.cuda.empty_cache()
+    phase_s["two_tower_s"] = time.perf_counter() - p0
+
     say("main_path", **{f"{k}_launches": v_ for k, v_ in launches.items()})
     missing = [k for k, v_ in launches.items() if v_ == 0]
     if missing:
@@ -462,10 +761,31 @@ def main() -> None:
     got = util.host(bsr_ops.reverse_walk_bsr(bsr_ops.csr_to_bsr(rc), 6, rsn))
     np.testing.assert_allclose(
         got, traversal.reverse_walk_dense_oracle(rc.to_dense(), 6), rtol=1e-5)
+    rows_s = util.expand_rows(small.offsets, small.m)
+    h_s = np.random.default_rng(7).standard_normal((small.n, 5)).astype(np.float32)
+    exp_s = np.zeros((small.n, 5))
+    np.add.at(exp_s, util.host(rows_s), h_s[util.host(small.dst)].astype(np.float64))
+    got_s = seg_ops.edge_segment_sum(rows_s, torch.from_numpy(h_s).to(dev)[small.dst.long()],
+                                     num_segments=small.n)
+    np.testing.assert_allclose(util.host(got_s), exp_s, rtol=1e-5, atol=1e-5)
+    smoke_cfg = two_tower_retrieval.SMOKE
+    sm = two_tower.init_model(smoke_cfg, generator=torch.Generator(dev).manual_seed(7),
+                              device=dev)
+    sm_cpu = two_tower.TwoTower(
+        *(two_tower.Tower(t.table.cpu(), [(w.cpu(), b_.cpu()) for w, b_ in zip(t.w, t.b)],
+                          smoke_cfg) for t in (sm.user, sm.item)), smoke_cfg)
+    brng = np.random.default_rng(7)
+    sbatch = {f"{t}_bags": torch.from_numpy(brng.integers(
+        -1, smoke_cfg.n_users, (32, nf, smoke_cfg.bag_size)).astype(np.int32))
+        for t, nf in (("user", smoke_cfg.n_user_fields), ("item", smoke_cfg.n_item_fields))}
+    np.testing.assert_allclose(
+        util.host(sm.serve_step({k_: v_.to(dev) for k_, v_ in sbatch.items()})),
+        util.host(sm_cpu.serve_step(sbatch)), rtol=SCORE_RTOL, atol=SCORE_ATOL)
     say("reference", graphs="social scale 10 (image and slotted walks), road scale 10 (BSR)",
-        steps=6, dense_oracle="agrees")
+        steps=6, dense_oracle="agrees", segment_sum="numpy float64 sums agree (rtol 1e-5)",
+        two_tower="SMOKE on the card agrees with the same weights on the CPU")
 
-    # 9. kernels against their plain versions at the main path's shapes ---
+    # 11. kernels against their plain versions at the main path's shapes --
     gidx = sw_ops._prep_gidx(g.dst, nv, img.edges_hi())
     vals = torch.cat([vk, vk.new_zeros(1)]).index_select(0, gidx.reshape(-1))
     vals = vals.reshape(-1, sw_kernel.EB).contiguous()
@@ -540,7 +860,7 @@ def main() -> None:
         bytes=sw_rows.numel() * 16, ops=sw_rows.numel(),
     ))
     del got, ref, nz
-    rows.append(bsr_row)
+    rows += [bsr_row, seg_row, bag_row]
 
     kernels = []
     for r in rows:
@@ -563,7 +883,7 @@ def main() -> None:
     say("wall", total_s=f"{time.perf_counter() - start:.1f}",
         **{k: f"{v_:.1f}" for k, v_ in phase_s.items()})
 
-    # 10. result lines ---------------------------------------------------
+    # 12. result lines ---------------------------------------------------
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

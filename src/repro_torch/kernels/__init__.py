@@ -5,6 +5,8 @@ attribute counts the times it launched its kernel.
 """
 from .bsr_spmm.kernel import bsr_spmm
 from .csr_build.kernel import count_degrees
+from .edge_segment_sum.kernel import edge_segment_partials
+from .embedding_bag.kernel import embedding_bag
 from .slot_update.kernel import merge_rows
 from .slot_walk.kernel import slot_walk_partials, tile_cumsum
 
@@ -14,4 +16,6 @@ KERNELS = {
     "count_degrees": count_degrees,
     "slot_walk_partials": slot_walk_partials,
     "bsr_spmm": bsr_spmm,
+    "edge_segment_partials": edge_segment_partials,
+    "embedding_bag": embedding_bag,
 }

@@ -40,6 +40,8 @@ SIGNATURES = {
                          _P, _P, _P, _P, _I, _P),
     "repro_slot_walk_partials": (_P, _P, _L, _L, _I, _P, _P, _P),
     "repro_bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "repro_edge_segment_partials": (_P, _P, _L, _I, _I, _P, _P, _P),
+    "repro_embedding_bag": (_P, _P, _P, _L, _I, _L, _I, _I, _P, _P),
 }
 
 

@@ -54,6 +54,21 @@ def tile_cumsum(vals: torch.Tensor) -> torch.Tensor:
 tile_cumsum.launches = 0
 
 
+def tile_ranks(rows: torch.Tensor, sink: int):
+    """Run ranks of [T, EB] tiles: a run is a maximal stretch of equal rows
+    and slot 0 always starts one.  -> (rank [T, EB] int64, the slot's run
+    index; rank_rows [T, EB] int32, each rank's row, ``sink`` for unused
+    ranks and rows outside [0, sink))."""
+    start = torch.ones_like(rows, dtype=torch.bool)
+    start[:, 1:] = rows[:, 1:] != rows[:, :-1]
+    rank = torch.cumsum(start, dim=1) - 1
+    live = (rows >= 0) & (rows < sink)
+    # every slot of a run writes the run's (one) value
+    rank_rows = torch.full_like(rows, sink).scatter_(
+        1, rank, torch.where(live, rows, sink))
+    return rank, rank_rows
+
+
 def slot_walk_partials_torch(rows: torch.Tensor, vals: torch.Tensor, sink: int):
     """Plain version: run flags, cumsum to ranks, ``scatter_add`` per tile.
 
@@ -61,13 +76,7 @@ def slot_walk_partials_torch(rows: torch.Tensor, vals: torch.Tensor, sink: int):
     reads rows[t % T]) -> (partials [B*T, EB] f32, rank_rows [T, EB] int32).
     """
     t = rows.shape[0]
-    start = torch.ones_like(rows, dtype=torch.bool)
-    start[:, 1:] = rows[:, 1:] != rows[:, :-1]
-    rank = torch.cumsum(start, dim=1) - 1  # int64, [T, EB]
-    live = (rows >= 0) & (rows < sink)
-    # every slot of a run writes the run's (one) value
-    rank_rows = torch.full_like(rows, sink).scatter_(
-        1, rank, torch.where(live, rows, sink))
+    rank, rank_rows = tile_ranks(rows, sink)
     b = vals.shape[0] // max(t, 1)
     partials = torch.zeros((b, t, EB), dtype=torch.float32, device=vals.device)
     partials.scatter_add_(2, rank.expand(b, t, EB), vals.reshape(b, t, EB))

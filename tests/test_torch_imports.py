@@ -15,14 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import two_tower_retrieval
 from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 from repro_torch.kernels.csr_build import kernel as cb_kernel
+from repro_torch.kernels.edge_segment_sum import kernel as seg_kernel
+from repro_torch.kernels.edge_segment_sum import ops as seg_ops
+from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
+from repro_torch.models.recsys import two_tower
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
@@ -115,7 +120,16 @@ def _wrapper_calls():
            torch.tensor([0, 1, 1], dtype=torch.int32),
            torch.from_numpy(rng.random((3, 128, 128), dtype=np.float32)),
            torch.from_numpy(rng.random((256, 8), dtype=np.float32)))
+    seg_vals = torch.from_numpy(rng.random((3, 128, 16), dtype=np.float32))
+    table = torch.from_numpy(rng.random((20, 8), dtype=np.float32))
+    bags = torch.from_numpy(rng.integers(-1, 25, (6, 4)).astype(np.int32))
+    wts = torch.from_numpy(rng.random((6, 4), dtype=np.float32))
     return {
+        "edge_segment_partials": (
+            lambda: seg_kernel.edge_segment_partials(rows, seg_vals, 8),
+            lambda: seg_kernel.edge_segment_partials_torch(rows, seg_vals, 8)),
+        "embedding_bag": (lambda: bag_kernel.embedding_bag(table, bags, wts, "mean"),
+                          lambda: bag_kernel.embedding_bag_torch(table, bags, wts, "mean")),
         "tile_cumsum": (lambda: sw_kernel.tile_cumsum(vals),
                         lambda: sw_kernel.tile_cumsum_torch(vals)),
         "count_degrees": (lambda: cb_kernel.count_degrees(src, 8),
@@ -156,4 +170,11 @@ def test_cpu_slice_launches_no_kernel():
     nv = g.n_max_vertex() + 1
     assert traversal.reverse_walk_slotted(g.dst, g.slot_rows, 3, nv).shape == (nv,)
     assert bsr_ops.reverse_walk_bsr(bsr_ops.csr_to_bsr(g.to_csr()), 3, nv).shape == (nv,)
+    rows = util.expand_rows(c.offsets, c.m)
+    h = torch.ones((n, 4))
+    assert seg_ops.edge_segment_sum(rows, h[c.dst.long()], num_segments=n).shape == (n, 4)
+    cfg = two_tower_retrieval.SMOKE
+    m = two_tower.init_model(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    bags = torch.from_numpy(rng.integers(-1, cfg.n_users, (3, 2, cfg.bag_size)).astype(np.int32))
+    assert m.serve_step({"user_bags": bags, "item_bags": bags}).shape == (3,)
     assert all(k.launches == 0 for k in KERNELS.values())

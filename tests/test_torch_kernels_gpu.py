@@ -15,14 +15,21 @@ from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
+from repro_torch.configs import two_tower_retrieval
 from repro_torch.kernels.csr_build import kernel as cb_kernel
+from repro_torch.kernels.edge_segment_sum import kernel as seg_kernel
+from repro_torch.kernels.edge_segment_sum import ops as seg_ops
+from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_update.ref import merge_rows_reference
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
+from repro_torch.models.recsys import two_tower
 
 pytestmark = pytest.mark.gpu
 SENT = np.iinfo(np.int32).max
 PARTIALS_RTOL = 2 * 127 * 2.0**-24
+U = 2.0**-24
 
 
 @pytest.fixture
@@ -226,3 +233,149 @@ def test_ranked_walk_cuda_matches_plain(cuda):
         # sums of non-negative terms in another order (and atomics in the
         # fold): a few ulps a step
         torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)
+
+
+def _segment_tiles(rng, n_tiles, sink, kind):
+    """[T, 128] rows ascending within each tile (hubs, dead rows >= sink)."""
+    if kind == "all_sink":
+        return np.full((n_tiles, 128), sink, np.int32)
+    if kind == "runs_128":  # every slot its own run
+        return np.tile(np.arange(128, dtype=np.int32), (n_tiles, 1))
+    rows = np.sort(rng.integers(0, sink + 3, (n_tiles, 128)), axis=1)
+    if kind == "hub":
+        rows[:, :100] = rows[:, :1]
+    return rows.astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "hub", "all_sink", "runs_128"])
+@pytest.mark.parametrize("n_tiles,dp", [(1, 1), (7, 3), (7, 6), (1000, 16), (33, 64),
+                                        (5, 200), (9, 256)])
+def test_edge_segment_partials_matches_plain(cuda, n_tiles, dp, kind):
+    rng = np.random.default_rng(n_tiles * dp)
+    sink = 200
+    rows = torch.from_numpy(_segment_tiles(rng, n_tiles, sink, kind)).to(cuda)
+    vals = torch.from_numpy(
+        rng.standard_normal((n_tiles, 128, dp)).astype(np.float32)).to(cuda)
+    before = KERNELS["edge_segment_partials"].launches
+    got_p, got_r = seg_kernel.edge_segment_partials(rows, vals, sink)
+    assert KERNELS["edge_segment_partials"].launches == before + 1
+    exp_p, exp_r = seg_kernel.edge_segment_partials_torch(rows, vals, sink)
+    assert torch.equal(got_r, exp_r)
+    # signed terms: a run of n <= 128 summed in two orders differs by at
+    # most 2*(n-1)*2^-24 times the run's sum of |terms|
+    absum, _ = seg_kernel.edge_segment_partials_torch(rows, vals.abs(), sink)
+    assert bool(((got_p - exp_p).abs() <= 2 * 127 * U * absum).all())
+    starts = torch.ones_like(rows, dtype=torch.bool)
+    starts[:, 1:] = rows[:, 1:] != rows[:, :-1]
+    unused = torch.arange(128, device=cuda)[None] >= starts.sum(dim=1, keepdim=True)
+    assert bool((got_p[unused] == 0).all())
+
+
+@pytest.mark.parametrize("e,d", [(1, 1), (300, 16), (5000, 64), (777, 5), (2000, 200)])
+def test_edge_segment_sum_cuda_matches_plain(cuda, e, d):
+    rng = np.random.default_rng(e + d)
+    n = max(e // 20, 2)
+    rows_np = np.sort(rng.integers(0, n + 2, e)).astype(np.int32)  # some >= n
+    rows = torch.from_numpy(rows_np).to(cuda)
+    vals = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(cuda)
+    before = KERNELS["edge_segment_partials"].launches
+    got = seg_ops.edge_segment_sum(rows, vals, num_segments=n)
+    assert KERNELS["edge_segment_partials"].launches == before + 1
+    exp = seg_ops.edge_segment_sum(rows, vals, num_segments=n, backend="torch")
+    ref = seg_ops.edge_segment_sum_reference(rows, vals, num_segments=n)
+    cnt = torch.bincount(rows.long(), minlength=n + 2)[:n, None].to(torch.float32)
+    absum = seg_ops.edge_segment_sum_reference(rows, vals.abs(), num_segments=n)
+    bound = 2 * torch.clamp(cnt - 1, min=0) * U * absum
+    assert got.shape == (n, d)
+    assert bool(((got - exp).abs() <= bound).all())
+    assert bool(((got - ref).abs() <= bound).all())
+
+
+def test_edge_segment_partials_rejects_bad_operands(cuda):
+    rows = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    vals = torch.zeros((2, 128, 8), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        seg_kernel.edge_segment_partials(rows, vals.double(), 4)
+    with pytest.raises(ValueError, match="int32"):
+        seg_kernel.edge_segment_partials(rows.long(), vals, 4)
+    with pytest.raises(ValueError, match="tiles|expected"):
+        seg_kernel.edge_segment_partials(rows[:, :64].contiguous(), vals[:, :64].contiguous(), 4)
+    off = torch.zeros(2 * 128 * 8 + 1, device=cuda)[1:].view(2, 128, 8)  # 4-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        seg_kernel.edge_segment_partials(rows, off, 4)
+
+
+def _bag_case(rng, v, d, b, k):
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    idx = rng.integers(-1, v, (b, k)).astype(np.int32)
+    idx[0] = -1        # an empty bag
+    idx[1, 0] = v + 7  # reads row v-1
+    w = rng.uniform(0.5, 1.5, (b, k)).astype(np.float32)
+    return table, idx, w
+
+
+@pytest.mark.parametrize("combine", ["sum", "mean", "max"])
+@pytest.mark.parametrize("v,d,b,k", [(50, 256, 300, 16), (40, 16, 7, 5), (30, 6, 9, 3),
+                                     (1000, 260, 70, 40), (20, 1, 5, 64)])
+def test_embedding_bag_matches_plain(cuda, combine, v, d, b, k):
+    table, idx, w = _bag_case(np.random.default_rng(v + d + k), v, d, b, k)
+    args = [torch.from_numpy(a).to(cuda) for a in (table, idx, w)]
+    before = KERNELS["embedding_bag"].launches
+    got = bag_kernel.embedding_bag(*args, combine)
+    assert KERNELS["embedding_bag"].launches == before + 1
+    exp = bag_kernel.embedding_bag_torch(*args, combine)
+    assert bool((got[0] == 0).all())
+    if combine == "max":
+        assert torch.equal(got, exp)
+    else:
+        # FMAs on the card, product then sum in the plain version: two
+        # roundings of the same K-term sum, within 2*K*2^-24*sum|row*w|
+        t, i, wt = args
+        rows = t[i.long().clamp(0, v - 1)].abs()
+        absum = (rows * torch.where(i >= 0, wt, 0.0)[..., None]).sum(dim=1)
+        assert bool(((got - exp).abs() <= 2 * k * U * absum).all())
+
+
+def test_embedding_bag_op_pads_and_defaults(cuda):
+    table, idx, _ = _bag_case(np.random.default_rng(3), 64, 32, 6, 5)
+    t, i = torch.from_numpy(table).to(cuda), torch.from_numpy(idx).to(cuda)
+    got = bag_ops.embedding_bag(t, i, combine="max")
+    assert torch.equal(got, bag_ops.embedding_bag(t, i, combine="max", backend="torch"))
+    one = bag_ops.embedding_bag(t, i[2], combine="max")
+    assert torch.equal(one[0], got[2])
+
+
+def test_embedding_bag_rejects_bad_operands(cuda):
+    t = torch.zeros((10, 8), device=cuda)
+    i = torch.zeros((3, 4), dtype=torch.int32, device=cuda)
+    w = torch.ones((3, 4), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        bag_kernel.embedding_bag(t.double(), i, w, "sum")
+    with pytest.raises(ValueError, match="int32"):
+        bag_kernel.embedding_bag(t, i.long(), w, "sum")
+    with pytest.raises(ValueError, match="differ"):
+        bag_kernel.embedding_bag(t, i, w[:, :2].contiguous(), "sum")
+    off = torch.zeros(81, device=cuda)[1:].view(10, 8)  # 4-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        bag_kernel.embedding_bag(off, i, w, "sum")
+
+
+def test_two_tower_cuda_matches_plain(cuda):
+    """SMOKE's model on the card: the bag kernel against the plain bag."""
+    cfg = two_tower_retrieval.SMOKE
+    m = two_tower.init_model(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    rng = np.random.default_rng(0)
+    k = cfg.bag_size
+
+    def bags(n, nf, vocab):
+        ids = rng.integers(0, vocab, (n, nf, k))
+        lens = rng.integers(0, k + 1, (n, nf, 1))
+        return torch.from_numpy(np.where(np.arange(k) < lens, ids, -1).astype(np.int32)).to(cuda)
+
+    batch = {"user_bags": bags(64, cfg.n_user_fields, cfg.n_users),
+             "item_bags": bags(64, cfg.n_item_fields, cfg.n_items)}
+    before = KERNELS["embedding_bag"].launches
+    got = m.serve_step(batch)
+    assert KERNELS["embedding_bag"].launches == before + 2  # one per tower
+    exp = m.with_backend("torch").serve_step(batch)
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)
