@@ -1,10 +1,17 @@
 """Shape sets (the counterpart of ``repro.configs.base``).
 
-Only the recsys family's shapes are carried over, verbatim: the ported
-two-tower model is the one that serves them.  ``repro``'s architecture
-registry and its LM and GNN shape sets come with the first ported code
-that reads them.
+The LM and recsys families' shapes are carried over, verbatim: the ported
+transformer and two-tower models serve them.  ``repro``'s architecture
+registry and its GNN shape set come with the first ported code that reads
+them.
 """
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
 RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
     "serve_p99": dict(kind="serve", batch=512),

@@ -7,6 +7,7 @@ from .bsr_spmm.kernel import bsr_spmm
 from .csr_build.kernel import count_degrees
 from .edge_segment_sum.kernel import edge_segment_partials
 from .embedding_bag.kernel import embedding_bag
+from .flash_attention.kernel import flash_attention
 from .slot_update.kernel import merge_rows
 from .slot_walk.kernel import slot_walk_partials, tile_cumsum
 
@@ -18,4 +19,5 @@ KERNELS = {
     "bsr_spmm": bsr_spmm,
     "edge_segment_partials": edge_segment_partials,
     "embedding_bag": embedding_bag,
+    "flash_attention": flash_attention,
 }

@@ -30,9 +30,10 @@ LIB_NAME = "librepro_torch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C entry points and their argument types (pointers and the stream as
-#: c_void_p, sizes as c_int / c_longlong; every entry returns an int status)
+#: c_void_p, sizes as c_int / c_longlong, scales as c_float; every entry
+#: returns an int status)
 SIGNATURES = {
     "repro_tile_cumsum": (_P, _P, _L, _P),
     "repro_count_degrees": (_P, _L, _I, _P, _P),
@@ -42,6 +43,8 @@ SIGNATURES = {
     "repro_bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_edge_segment_partials": (_P, _P, _L, _I, _I, _P, _P, _P),
     "repro_embedding_bag": (_P, _P, _P, _L, _I, _L, _I, _I, _P, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _P),
 }
 
 

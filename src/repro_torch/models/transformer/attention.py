@@ -1,0 +1,93 @@
+"""Attention implementations (the counterpart of
+``repro.models.transformer.attention``): ref (dense scores), blocked
+(``repro``'s XLA online-softmax scan, in plain torch), flash (the CUDA
+kernel).
+
+Shape routing differs from ``repro`` for ``impl="flash"``: ``repro`` sends
+S <= ``block`` (and Sq == 1) to the dense reference, while the port sends
+every shape to the flash op, so that on a card the plain version stays off
+the main path.  ``impl="ref"`` still calls the reference and
+``impl="blocked"`` the ported scan (with ``repro``'s routing); within the
+flash op ``backend="torch"`` is the kernel's plain version on the card,
+and a CPU tensor always takes the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...kernels.flash_attention import ops as fa_ops
+
+NEG_INF = -1e30
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding; x [..., S, H, Dh], positions [..., S].
+
+    The frequencies and angles are ``repro``'s, in its order: a float32
+    power, then a float32 product with the positions.
+    """
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32,
+                                           device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs  # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def ref_attention(q, k, v, *, causal=True, window=0):
+    """Dense-score attention (small shapes / tests)."""
+    return fa_ops.attention_reference(q, k, v, causal=causal, window=window)
+
+
+def blocked_attention(q, k, v, *, causal=True, window=0, block=512):
+    """Online-softmax attention as a loop over KV blocks, ``repro``'s XLA
+    formulation: q scaled before the dot, every block visited (no skip)."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    if skv % block:
+        raise ValueError(f"Skv={skv} is not a multiple of block={block}")
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float() * scale
+    q_ids = torch.arange(sq, device=q.device)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, skv, block):
+        kk = k[:, :, k0:k0 + block].float().repeat_interleave(group, dim=1)
+        vv = v[:, :, k0:k0 + block].float().repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kk)
+        k_ids = k0 + torch.arange(block, device=q.device)
+        mask = torch.ones((sq, block), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_ids[None, :] <= q_ids[:, None]
+        if window > 0:
+            mask &= k_ids[None, :] > q_ids[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vv)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def attention(q, k, v, *, impl="blocked", causal=True, window=0, block=512,
+              backend="auto"):
+    if impl == "ref":
+        return ref_attention(q, k, v, causal=causal, window=window)
+    if impl == "blocked":
+        if q.shape[2] <= block:
+            return ref_attention(q, k, v, causal=causal, window=window)
+        return blocked_attention(q, k, v, causal=causal, window=window, block=block)
+    if impl == "flash":
+        return fa_ops.attention(q, k, v, causal=causal, window=window, backend=backend,
+                                block_q=block, block_k=block)
+    raise ValueError(impl)
+
+
+decode_attention = fa_ops.decode_attention

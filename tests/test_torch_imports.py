@@ -6,6 +6,7 @@
   versions, and every ``launches`` count stays 0.
 """
 import ast
+import dataclasses
 import os
 import runpy
 import subprocess
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import two_tower_retrieval
+from repro_torch.configs import h2o_danube_1_8b, two_tower_retrieval
 from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
@@ -25,9 +26,11 @@ from repro_torch.kernels.csr_build import kernel as cb_kernel
 from repro_torch.kernels.edge_segment_sum import kernel as seg_kernel
 from repro_torch.kernels.edge_segment_sum import ops as seg_ops
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
 from repro_torch.models.recsys import two_tower
+from repro_torch.models.transformer import model as tm
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
@@ -62,8 +65,8 @@ def test_chip_smoke_imports_only_the_port():
             mods.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module.split(".")[0])
-    assert mods <= {"contextlib", "json", "os", "subprocess", "sys", "time", "numpy",
-                    "torch", "repro_torch"}, mods
+    assert mods <= {"contextlib", "dataclasses", "json", "os", "subprocess", "sys", "time",
+                    "numpy", "torch", "repro_torch"}, mods
 
 
 def test_chip_smoke_fails_without_a_gpu(capsys):
@@ -78,12 +81,16 @@ def test_chip_smoke_fails_without_a_gpu(capsys):
 
 @pytest.mark.parametrize(
     "entry",
-    ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree"],
+    ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree", "init_model",
+     "init_cache", "from_jax_params"],
 )
 def test_default_device_raises_without_gpu(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     c = csr.from_coo([0, 1], [1, 0], n=2, device="cpu")
+    lm = h2o_danube_1_8b.SMOKE
+    lm_params = {"embed": np.zeros((256, 64)), "ln_f": np.ones(64), "unembed": np.zeros((64, 256)),
+                 "layers": {n: np.zeros((2, *s)) for n, s in tm._layer_param_shapes(lm).items()}}
     calls = {
         "from_coo": lambda: csr.from_coo([0, 1], [1, 0], n=2),
         "make_graph": lambda: synthetic.make_graph("uniform", scale=3),
@@ -92,6 +99,9 @@ def test_default_device_raises_without_gpu(entry):
         "from_state_tree": lambda: DiGraph.from_state_tree(
             DiGraph.from_csr(c, device="cpu").state_tree()
         ),
+        "init_model": lambda: tm.init_model(lm, generator=torch.Generator()),
+        "init_cache": lambda: tm.init_cache(lm, 2, 16),
+        "from_jax_params": lambda: tm.from_jax_params(lm_params, lm),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -124,6 +134,8 @@ def _wrapper_calls():
     table = torch.from_numpy(rng.random((20, 8), dtype=np.float32))
     bags = torch.from_numpy(rng.integers(-1, 25, (6, 4)).astype(np.int32))
     wts = torch.from_numpy(rng.random((6, 4), dtype=np.float32))
+    q = torch.from_numpy(rng.standard_normal((1, 4, 32, 16), dtype=np.float32))
+    kv = torch.from_numpy(rng.standard_normal((1, 2, 32, 16), dtype=np.float32))
     return {
         "edge_segment_partials": (
             lambda: seg_kernel.edge_segment_partials(rows, seg_vals, 8),
@@ -140,6 +152,8 @@ def _wrapper_calls():
                                lambda: sw_kernel.slot_walk_partials_torch(rows, vals, 8)),
         "bsr_spmm": (lambda: bsr_kernel.bsr_spmm(*bsr, d_tile=8),
                      lambda: bsr_kernel.bsr_spmm_torch(*bsr)),
+        "flash_attention": (lambda: fa_kernel.flash_attention(q, kv, kv, window=8),
+                            lambda: fa_kernel.flash_attention_torch(q, kv, kv, window=8)),
     }
 
 
@@ -177,4 +191,8 @@ def test_cpu_slice_launches_no_kernel():
     m = two_tower.init_model(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
     bags = torch.from_numpy(rng.integers(-1, cfg.n_users, (3, 2, cfg.bag_size)).astype(np.int32))
     assert m.serve_step({"user_bags": bags, "item_bags": bags}).shape == (3,)
+    lm = dataclasses.replace(h2o_danube_1_8b.SMOKE, attn_impl="flash", attn_block=8)
+    model = tm.init_model(lm, generator=torch.Generator().manual_seed(2), device="cpu")
+    logits, _ = model(torch.from_numpy(rng.integers(0, lm.vocab, (2, 32))))
+    assert logits.shape == (2, 32, lm.vocab) and bool(torch.isfinite(logits).all())
     assert all(k.launches == 0 for k in KERNELS.values())

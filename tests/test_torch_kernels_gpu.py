@@ -6,6 +6,8 @@ use) and skip without one.  They import only torch, numpy and
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,16 +17,19 @@ from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
-from repro_torch.configs import two_tower_retrieval
+from repro_torch.configs import h2o_danube_1_8b, two_tower_retrieval
 from repro_torch.kernels.csr_build import kernel as cb_kernel
 from repro_torch.kernels.edge_segment_sum import kernel as seg_kernel
 from repro_torch.kernels.edge_segment_sum import ops as seg_ops
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_update.ref import merge_rows_reference
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
 from repro_torch.models.recsys import two_tower
+from repro_torch.models.transformer import model as tm
 
 pytestmark = pytest.mark.gpu
 SENT = np.iinfo(np.int32).max
@@ -379,3 +384,93 @@ def test_two_tower_cuda_matches_plain(cuda):
     assert KERNELS["embedding_bag"].launches == before + 2  # one per tower
     exp = m.with_backend("torch").serve_step(batch)
     torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# flash_attention
+# --------------------------------------------------------------------------
+def _fa_close(got, exp, v, dtype):
+    """Kernel against plain: the f32 sums of <= 4096 terms in two orders
+    (gamma_4096 = 4096 * 2^-24 = 2^-12 of max|v|), and for bfloat16 one
+    rounding of each f32 result (<= 2^-7 relative)."""
+    assert got.dtype == exp.dtype == dtype
+    torch.testing.assert_close(got.float(), exp.float(),
+                               rtol=2**-7 if dtype == torch.bfloat16 else 1e-5,
+                               atol=2**-12 * float(v.float().abs().max()))
+
+
+def _fa_inputs(cuda, dtype, b, hq, hkv, sq, skv, d, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=cuda).to(dtype)
+                 for s in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+def test_flash_attention_head_dims(cuda, dtype, d):
+    q, k, v = _fa_inputs(cuda, dtype, 2, 4, 2, 256, 256, d, seed=d)
+    before = KERNELS["flash_attention"].launches
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=0)
+    assert KERNELS["flash_attention"].launches == before + 1
+    _fa_close(got, fa_kernel.flash_attention_torch(q, k, v, causal=True, window=0), v, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,d,causal,window",
+    [
+        (1, 4, 4, 128, 128, 32, False, 0),     # group 1, not causal
+        (1, 8, 2, 256, 256, 64, True, 96),     # group 4, window
+        (2, 4, 2, 320, 320, 80, True, 40),     # group 2, window, a ragged last tile
+        (1, 4, 1, 256, 256, 80, False, 33),    # window without causality
+        (1, 2, 1, 16, 16, 16, True, 0),        # less than one tile
+        (1, 4, 1, 256, 64, 32, True, 16),      # Sq > Skv: rows >= 80 see no key
+        (1, 4, 2, 64, 200, 48, False, 0),      # Sq < Skv, ragged keys
+        (1, 2, 2, 100, 100, 100, True, 0),     # D not a multiple of 16
+    ],
+)
+def test_flash_attention_masks_and_groups(cuda, dtype, b, hq, hkv, sq, skv, d, causal, window):
+    q, k, v = _fa_inputs(cuda, dtype, b, hq, hkv, sq, skv, d, seed=sq + d)
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    exp = fa_kernel.flash_attention_torch(q, k, v, causal=causal, window=window)
+    _fa_close(got, exp, v, dtype)
+    if sq > skv:
+        assert not bool(got[:, :, skv + window:].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_long_window(cuda, dtype):
+    """The model's head shape at S = 8192 with its 4096-key window."""
+    q, k, v = _fa_inputs(cuda, dtype, 1, 4, 1, 8192, 8192, 80, seed=1)
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=4096)
+    _fa_close(got, fa_kernel.flash_attention_torch(q, k, v, causal=True, window=4096), v, dtype)
+
+
+def test_flash_attention_rejects_bad_operands(cuda):
+    q, k, v = _fa_inputs(cuda, torch.float32, 1, 4, 2, 64, 64, 32)
+    with pytest.raises(ValueError, match="expected one of"):
+        fa_kernel.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa_kernel.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="1..128"):
+        fa_kernel.flash_attention(*_fa_inputs(cuda, torch.float32, 1, 1, 1, 8, 8, 160))
+    with pytest.raises(ValueError, match="group"):
+        fa_kernel.flash_attention(*_fa_inputs(cuda, torch.float32, 1, 3, 2, 8, 8, 16))
+    # the op routes a CUDA tensor to the kernel at every shape, Sq == 1 too
+    before = KERNELS["flash_attention"].launches
+    fa_ops.attention(q[:, :, :1].contiguous(), k, v, causal=False)
+    assert KERNELS["flash_attention"].launches == before + 1
+
+
+def test_transformer_cuda_matches_plain(cuda):
+    """SMOKE with flash attention on the card, kernel against plain, f32."""
+    cfg = dataclasses.replace(h2o_danube_1_8b.SMOKE, attn_impl="flash", attn_block=16)
+    m = tm.init_model(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda)
+    before = KERNELS["flash_attention"].launches
+    got, _ = m(toks)
+    assert KERNELS["flash_attention"].launches == before + cfg.n_layers
+    exp, _ = m.with_backend("torch")(toks)
+    torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4)
