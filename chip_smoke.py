@@ -46,11 +46,16 @@ SNAP's soc-LiveJournal1):
           h2o-danube-1.8b at full width (24 layers, d_model 2560, 32/8
           heads of 80, window 4096, random weights from the seed) with
           attn_impl="flash": one 32,768-token prefill (prefill_32k, batch
-          cut to 1) through 24 flash_attention launches (timed, with the
-          kernels' share), held against the plain attention at 8,192
-          tokens; decode_32k (batch 128 against a 4,096-slot bfloat16 ring
-          filled from the seed, 8 greedy steps timed); prefill against 64
-          decode steps in float32
+          cut to 1) through 24 flash_attention launches, all on its
+          tensor-core (wgmma) kernel (timed, with the kernels' share),
+          held against the plain attention at 8,192 tokens (in float32;
+          in bfloat16, the distance from the float32 model against that
+          of the bfloat16 model with the plain attention); the kernel's
+          TFLOP/s on the visible pairs beside SDPA's flash backend on plain
+          causal attention at the same shape (a yardstick); decode_32k
+          (batch 128 against a 4,096-slot bfloat16 ring filled from the
+          seed, 8 greedy steps timed); prefill against 64 decode steps in
+          float32
 
 then holds each kernel against its plain PyTorch version at the shapes its
 path gave it and times both.  The line before the last is
@@ -124,10 +129,17 @@ LM_CHECK_LEN = 8192
 #: the model-level check runs in float32, where the kernel and the plain
 #: attention differ only in the order of their f32 sums (at worst
 #: gamma_4096 = 2^-12 of max|v| a layer, ~1e-6 relative in practice); the
-#: bfloat16 model's logits differ by compounding one-ulp rounding flips
-#: (280 of 262,144,000 logits beyond 2^-4 at 8,192 tokens), so that
-#: comparison is printed, not held
+#: bfloat16 model's logits differ from its plain-attention twin's by
+#: compounding one-ulp rounding flips (280 of 262,144,000 logits beyond
+#: 2^-4 at 8,192 tokens on the FMA kernel), so that comparison is printed
 LM_CHECK_TOL = 1e-3
+#: the bfloat16 model is held against the float32 model with the plain
+#: attention instead: the RMS distance of its logits (through the kernel)
+#: may exceed that of the bfloat16 model with the plain attention by at
+#: most this factor.  Both distances come from the bfloat16 roundings of
+#: every projection and attention output; the kernel's own error (~2^-17
+#: relative, the hi/lo split of p) is far below them
+LM_BF16_RMS_RATIO = 1.10
 #: greedy decode steps timed after a warm-up step
 DECODE_STEPS = 8
 #: prefill against decode: prompt length, batch and the tolerance of
@@ -143,6 +155,34 @@ def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     hi = np.minimum(q + 1, skv) if causal else np.full(sq, skv)
     lo = np.maximum(q - window + 1, 0) if window > 0 else 0
     return int(np.maximum(hi - lo, 0).sum())
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance of two bfloat16 tensors in units in the last place."""
+    def key(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits + 32768), bits)
+    return (key(a) - key(b)).abs()
+
+
+def flash_sass(lib_path: str, nvcc: str) -> dict:
+    """Tensor-core (HGMMA, HMMA) and TMA (UTMALDG) instructions in the
+    built library's SASS, in flash_attention's tensor-core kernel at D = 80
+    (``tc80``) and in its FMA kernels at every head dim (``fma``)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    ops = ("HGMMA", "HMMA", "UTMALDG")
+    counts = {"tc80": dict.fromkeys(ops, 0), "fma": dict.fromkeys(ops, 0)}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = ("tc80" if "flash_attention_tcILi80E" in line
+                  else "fma" if "flash_attention_kernel" in line else None)
+        elif fn:
+            for op in ops:
+                counts[fn][op] += f" {op}" in line
+    return counts
 
 
 def say(phase: str, **kv) -> None:
@@ -795,12 +835,17 @@ def main() -> None:
     s_len = cfg_base.LM_SHAPES["prefill_32k"]["seq_len"]
     toks = torch.randint(0, lm_cfg.vocab, (PREFILL_BATCH, s_len), generator=lgen, device=dev)
     lm(toks)  # warm-up
+    fa_paths = dict(fa_kernel.flash_attention.path_launches)
     t0 = sync_now()
     with counted(KERNELS, launches), largest_call(
             fa_ops, "attention", lambda args: args[0].numel()) as fa_seen:
         logits, _ = lm(toks)
     times["prefill_ms"] = sync_s(t0) * 1e3
     expect_launches("flash_attention", n_layers, "transformer/prefill")
+    fa_paths = {k_: n_ - fa_paths[k_] for k_, n_ in fa_kernel.flash_attention.path_launches.items()}
+    if fa_paths["wgmma"] != n_layers:
+        raise AssertionError(f"transformer/prefill: flash_attention kernels {fa_paths}, expected "
+                             f"all {n_layers} on the tensor-core (wgmma) kernel")
     if (tuple(logits.shape) != (PREFILL_BATCH, s_len, lm_cfg.vocab)
             or logits.dtype != lm_cfg.compute_dtype or not bool(torch.isfinite(logits).all())):
         raise AssertionError("transformer/prefill: logits not finite bfloat16 of shape "
@@ -818,7 +863,9 @@ def main() -> None:
         fa_events.append(ev)
         return out
 
-    fa_timed.launches = 0  # the wrapper counts on the name it is bound to
+    # the wrapper counts on the name it is bound to
+    fa_timed.launches = 0
+    fa_timed.path_launches = dict.fromkeys(fa_kernel.PATHS, 0)
 
     whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
     fa_kernel.flash_attention = fa_timed
@@ -845,7 +892,8 @@ def main() -> None:
         model_flop_share_of_989=f"{(proj_flop + attn_flop) / (times['prefill_ms'] / 1e3) / TENSOR_BF16_OPS_PER_S:.4f}",
         prefill_event_ms=f"{prefill_event_ms:.2f}", flash_calls=len(fa_events),
         flash_event_ms=f"{attn_event_ms:.2f}", rest_event_ms=f"{prefill_event_ms - attn_event_ms:.2f}",
-        flash_share=f"{attn_event_ms / prefill_event_ms:.4f}", card=f"'{smi}'")
+        flash_share=f"{attn_event_ms / prefill_event_ms:.4f}",
+        flash_kernels=",".join(f"{k_}:{n_}" for k_, n_ in fa_paths.items()), card=f"'{smi}'")
     # the kernel at one layer's operands, against its plain version
     fq, fk_, fv = (t.contiguous() for t in fa_seen["args"])
     got = fa_kernel.flash_attention(fq, fk_, fv, causal=True, window=win)
@@ -868,7 +916,25 @@ def main() -> None:
         ops=fq.shape[0] * hq * 4 * dh * pairs,
         ops_per_s=TENSOR_BF16_OPS_PER_S, peak="bf16 tensor cores, 989 TFLOP/s",
     )
-    del got
+    # where the kernel and its plain version round an output to different
+    # bfloat16 neighbours, against the FMA kernel (float32 on the same
+    # bfloat16 values, rounded once: what it computes for bfloat16 inputs)
+    fma = fa_kernel.flash_attention(fq.float(), fk_.float(), fv.float(), causal=True,
+                                    window=win).bfloat16()
+    # (an output near 0 may change sign inside the atol: many ulps apart)
+    flips_note = []
+    for name_, out_ in (("wgmma", got), ("fma", fma)):
+        u = bf16_ulps(out_, ref)
+        far = (u > 1) & ((out_.float() - ref.float()).abs() > fa_atol)
+        flips_note.append(f"{name_} {float((u > 0).float().mean()):.4e} of outputs "
+                          f"({int(far.sum())} beyond one ulp and the atol)")
+    flips_note = ", ".join(flips_note)
+    del got, fma, u, far
+    sass = flash_sass(_build.library()._name, _build._nvcc())
+    if (not sass["tc80"]["HGMMA"] or not sass["tc80"]["UTMALDG"]
+            or sass["fma"]["HGMMA"] or sass["fma"]["HMMA"]):
+        raise AssertionError(f"transformer: flash_attention SASS {sass}: expected HGMMA and "
+                             "UTMALDG in the D = 80 bfloat16 kernel, none in the FMA kernels")
     try:  # the yardstick only: PyTorch's SDPA with the explicit mask
         from torch.nn.attention import SDPBackend, sdpa_kernel
         kr = fk_.repeat_interleave(hq // hkv, dim=1)
@@ -886,12 +952,34 @@ def main() -> None:
         del kr, vr, mask
     except (RuntimeError, NotImplementedError) as e:
         lib_note = f"none: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    # what a tuned library reaches at head dim 80 on this card: SDPA's flash
+    # backend on plain causal attention (no window, K/V repeated, its own
+    # S(S+1)/2 pairs a head); a yardstick only, never on the port's path
+    causal_flop = 4 * dh * hq * s_len * (s_len + 1) // 2
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        kr = fk_.repeat_interleave(hq // hkv, dim=1)
+        vr = fv.repeat_interleave(hq // hkv, dim=1)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            causal_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                fq, kr, vr, is_causal=True), reps=5)
+        causal_note = (f"sdpa_flash_causal_ms={causal_ms:.4f} "
+                       f"sdpa_flash_causal_tflops={causal_flop / causal_ms / 1e9:.1f}")
+        del kr, vr
+    except (RuntimeError, NotImplementedError) as e:
+        causal_note = f"none: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    fa_tflops = fa_row["ops"] / fa_row["ms"] / 1e9
     say("transformer", kernel_ms=f"{fa_row['ms']:.4f}", plain_ms=f"{fa_row['plain_ms']:.4f}",
-        library=lib_note)
+        kernel_tflops_visible=f"{fa_tflops:.1f}",
+        kernel_share_of_989=f"{fa_tflops * 1e12 / TENSOR_BF16_OPS_PER_S:.4f}",
+        library=lib_note, causal_yardstick=causal_note, flips_vs_plain=flips_note,
+        sass=" ".join(f"{fn_}:" + ",".join(f"{op}={n_}" for op, n_ in c.items())
+                      for fn_, c in sass.items()))
     del ref, fq, fk_, fv, fa_seen
     torch.cuda.empty_cache()
     # the model against its plain attention, window active: held in
-    # float32, printed in bfloat16
+    # float32; in bfloat16 printed, and held against the float32 model
+    # beside the bfloat16 model with the plain attention
     short = toks[:, :LM_CHECK_LEN]
     lm_check = {}
     for name, model in (("f32", lm.with_config(compute_dtype=torch.float32)), ("bf16", lm)):
@@ -905,8 +993,25 @@ def main() -> None:
                          f"{float((got.argmax(-1) == ref.argmax(-1)).float().mean()):.6f}"}
         if name == "f32":
             torch.testing.assert_close(got, ref, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL)
+            exact = ref
+        else:
+            rms = {k_: float((x.float() - exact).square().mean().sqrt())
+                   for k_, x in (("kernel", got), ("plain", ref))}
+            agree = {k_: float((x.argmax(-1) == exact.argmax(-1)).float().mean())
+                     for k_, x in (("kernel", got), ("plain", ref))}
+            lm_check |= {
+                "bf16_rms_vs_f32": f"{rms['kernel']:.4e}",
+                "bf16_plain_rms_vs_f32": f"{rms['plain']:.4e}",
+                "bf16_rms_ratio": f"{rms['kernel'] / rms['plain']:.4f}",
+                "bf16_argmax_agree_f32": f"{agree['kernel']:.6f}",
+                "bf16_plain_argmax_agree_f32": f"{agree['plain']:.6f}"}
+            if rms["kernel"] > LM_BF16_RMS_RATIO * rms["plain"]:
+                raise AssertionError(
+                    f"transformer: the bfloat16 model's logits are {rms['kernel']:.4e} RMS from "
+                    f"the float32 model's through the kernel, {rms['plain']:.4e} through the "
+                    f"plain attention (limit {LM_BF16_RMS_RATIO}x)")
         del got, ref, diff
-    del toks, short
+    del toks, short, exact
     # decode_32k: batch 128 against the ring, filled from the seed
     dec = cfg_base.LM_SHAPES["decode_32k"]
     db = dec["global_batch"]
@@ -956,7 +1061,8 @@ def main() -> None:
         decode_attention_ms_a_layer=f"{dec_attn_ms:.4f}",
         decode_attention_share=f"{n_layers * dec_attn_ms / times['decode_step_ms']:.4f}",
         **{f"vs_plain_{k_}": v_ for k_, v_ in lm_check.items()},
-        vs_plain_tolerance=f"float32: rtol=atol={LM_CHECK_TOL} at {LM_CHECK_LEN} tokens",
+        vs_plain_tolerance=(f"float32: rtol=atol={LM_CHECK_TOL} at {LM_CHECK_LEN} tokens; "
+                            f"bfloat16: RMS from float32 <= {LM_BF16_RMS_RATIO}x the plain's"),
         prefill_vs_decode_max_abs_diff=f"{pd_diff:.3e}",
         prefill_vs_decode=f"float32, {PD_LEN} tokens x {PD_BATCH}, rtol=atol={PD_TOL}")
     phase_s["transformer_s"] = time.perf_counter() - p0

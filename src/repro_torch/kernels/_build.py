@@ -1,11 +1,12 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
-process per source, all started together) and linked into one shared
-library with a plain C interface, loaded through ``ctypes``.  The build
-runs at the first CUDA launch of the process, goes into ``build/`` at the
-root of the checkout, and is keyed by a hash of the sources and flags, so a
-fresh checkout builds once and an edited source rebuilds.
+Every ``csrc/*.cu`` source (which may include a ``csrc/*.cuh`` header) is
+compiled by ``nvcc`` for ``sm_90a`` (one process per source, all started
+together) and linked into one shared library with a plain C interface,
+loaded through ``ctypes``.  The build runs at the first CUDA launch of the
+process, goes into ``build/`` at the root of the checkout, and is keyed by
+a hash of the sources, headers and flags, so a fresh checkout builds once
+and an edited source rebuilds.
 
 Each C entry point launches on the caller's stream, allocates nothing, and
 returns ``cudaGetLastError()``; ``check`` turns a non-zero status into an
@@ -45,6 +46,7 @@ SIGNATURES = {
     "repro_embedding_bag": (_P, _P, _P, _L, _I, _L, _I, _I, _P, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                               _I, _P),
+    "repro_flash_attention_path": (_P, _P, _P, _P, _I, _I, _I),
 }
 
 
@@ -98,7 +100,8 @@ def _compile(sources, lib_path: Path) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from ``csrc/`` on first use."""
     sources = sorted(CSRC.glob("*.cu"))
-    lib_path = BUILD_DIR / f"kernels-{_digest(sources)}" / LIB_NAME
+    headers = sorted(CSRC.glob("*.cuh"))
+    lib_path = BUILD_DIR / f"kernels-{_digest(sources + headers)}" / LIB_NAME
     if not lib_path.exists():
         _compile(sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))

@@ -4,13 +4,20 @@
 sliding-window masks and GQA head grouping, in one launch
 (``csrc/flash_attention.cu``).  It replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention`` (a
-(B·Hq, Sq/BQ, Skv/BK) grid that skips fully masked kv blocks).  The kernel
-picks its own tile sizes and takes any Sq, Skv and D <= 128, in float32 or
-bfloat16; the op's ``block_q`` / ``block_k`` only set its preconditions.
+(B·Hq, Sq/BQ, Skv/BK) grid that skips fully masked kv blocks).  The C entry
+point picks one of two hand-written kernels by type, head dim and alignment
+(``repro_flash_attention_path``): bfloat16 at D % 8 == 0 (16-byte aligned
+operands, Skv > 0) runs the tensor-core kernel (``"wgmma"``: TMA tile ring,
+bf16 wgmma products with f32 accumulators, P split into two bf16 halves so
+P·V keeps f32 precision); float32, and the other bfloat16 calls, run the
+FMA kernel (``"simt"``: f32 tiles, FP32 FMAs on the CUDA cores).  Both pick
+their own tile sizes and take any Sq, Skv and D <= 128; the op's
+``block_q`` / ``block_k`` only set its preconditions.
 
 The wrapper launches the CUDA kernel for CUDA tensors and uses its plain
 PyTorch version (``flash_attention_torch``) only for CPU tensors; its
-``launches`` attribute counts kernel launches.
+``launches`` attribute counts kernel launches, and ``path_launches`` counts
+them by kernel (``"wgmma"`` / ``"simt"``).
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from .. import _build
 NEG_INF = -1e30
 #: the kernel's input types and their codes in the C entry point
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the CUDA kernels, indexed by what repro_flash_attention_path returns
+PATHS = ("simt", "wgmma")
 #: query rows the plain version takes at a time
 PLAIN_BLOCK_Q = 256
 
@@ -94,6 +103,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     lib = _build.library()
+    path = PATHS[lib.repro_flash_attention_path(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), skv, d, DTYPES[q.dtype])]
     _build.check(
         lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * hq, hq, hkv,
@@ -103,7 +114,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         "flash_attention",
     )
     flash_attention.launches += 1
+    flash_attention.path_launches[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.path_launches = dict.fromkeys(PATHS, 0)

@@ -446,6 +446,94 @@ def test_flash_attention_long_window(cuda, dtype):
     _fa_close(got, fa_kernel.flash_attention_torch(q, k, v, causal=True, window=4096), v, dtype)
 
 
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,skv,d,causal,window,q_scale",
+    [
+        (1, 4, 1, 512, 512, 80, True, 0, 8.0),        # peaked: one key dominates a row
+        (1, 2, 1, 256, 4096, 80, False, 0, 1e-3),     # near-uniform over 4,096 keys
+        (1, 4, 1, 1000, 1000, 80, True, 0, 1.0),      # ragged: neither tile divides 1000
+        (1, 4, 1, 1000, 1000, 80, True, 300, 1.0),    # ragged, with a window
+        (1, 4, 1, 1, 777, 80, False, 0, 1.0),         # Sq = 1
+        (1, 4, 1, 1, 777, 80, True, 0, 1.0),          # Sq = 1, causal: key 0 only
+        (1, 4, 4, 512, 512, 80, True, 200, 1.0),      # group 1
+        (1, 8, 2, 512, 512, 80, True, 200, 1.0),      # group 4
+        (1, 8, 1, 512, 512, 80, True, 200, 1.0),      # group 8
+        (1, 2, 1, 8192, 8192, 80, True, 0, 1.0),      # causal, no window: interior tiles
+    ],
+    ids=["peaked", "near_uniform", "ragged", "ragged_window", "sq1", "sq1_causal",
+         "group1", "group4", "group8", "causal_8192"],
+)
+def test_flash_attention_tensor_core_cases(cuda, b, hq, hkv, sq, skv, d, causal, window,
+                                           q_scale):
+    """bf16 at D = 80 runs the wgmma kernel: P split into bf16 hi and lo
+    keeps the plain version's f32 p, so the same tolerance holds."""
+    q, k, v = _fa_inputs(cuda, torch.bfloat16, b, hq, hkv, sq, skv, d, seed=sq + hq + hkv)
+    q = (q.float() * q_scale).bfloat16()
+    before = fa_kernel.flash_attention.path_launches["wgmma"]
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.flash_attention.path_launches["wgmma"] == before + 1
+    exp = fa_kernel.flash_attention_torch(q, k, v, causal=causal, window=window)
+    _fa_close(got, exp, v, torch.bfloat16)
+
+
+def _fa_cancelling(device, sq=128, skv=512, d=80):
+    """Rows whose output nearly cancels.  Row i has q = (1 + i/128) e0; even
+    keys have k = 0 and v = +1, odd keys k = -(3/128) e0 and v = -1 (each
+    column of either sign), so p is 1 on even keys and x_i in (0.994,
+    0.998) on odd ones, and the output is +-(1 - x_i)/(1 + x_i) ~ 2e-3.  One
+    bf16 rounding of x_i (up to 2^-9) moves it by up to ~2^-10, four times
+    the atol of 2^-12."""
+    q = torch.zeros((1, 2, sq, d), device=device)
+    q[..., 0] = 1 + torch.arange(sq, device=device) % 128 / 128
+    k = torch.zeros((1, 1, skv, d), device=device)
+    k[:, :, 1::2, 0] = -3 / 128
+    v = torch.where(torch.arange(d, device=device) % 3 == 0, -1.0, 1.0).expand(1, 1, skv, d)
+    v = v * torch.where(torch.arange(skv, device=device) % 2 == 0, 1.0, -1.0)[:, None]
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+def test_flash_attention_p_keeps_f32(cuda):
+    """A case that one bf16 rounding of p fails: the tensor-core kernel's
+    hi/lo split of p keeps the plain version's f32 p."""
+    q, k, v = _fa_cancelling(cuda)
+    exp = fa_kernel.flash_attention_torch(q, k, v, causal=False, window=0)
+    s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    rounded_once = ((p.bfloat16().float() @ v.float()) / p.sum(-1, keepdim=True)).bfloat16()
+    with pytest.raises(AssertionError):
+        _fa_close(rounded_once, exp, v, torch.bfloat16)
+    before = fa_kernel.flash_attention.path_launches["wgmma"]
+    got = fa_kernel.flash_attention(q, k, v, causal=False, window=0)
+    assert fa_kernel.flash_attention.path_launches["wgmma"] == before + 1
+    _fa_close(got, exp, v, torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "dtype,d,offset,path",
+    [
+        (torch.bfloat16, 80, 0, "wgmma"),
+        (torch.bfloat16, 40, 0, "wgmma"),    # D = 8 (mod 16): TMA zero-fills to 48
+        (torch.bfloat16, 100, 0, "simt"),    # D % 8 != 0: no 16-byte row pitch
+        (torch.bfloat16, 80, 1, "simt"),     # q not 16-byte aligned
+        (torch.float32, 80, 0, "simt"),
+        (torch.float32, 64, 0, "simt"),
+    ],
+)
+def test_flash_attention_dispatch(cuda, dtype, d, offset, path):
+    """Type, head dim and alignment pick the kernel; every call counts."""
+    q, k, v = _fa_inputs(cuda, dtype, 1, 4, 2, 96, 96, d, seed=d)
+    if offset:
+        buf = torch.empty(q.numel() + offset, dtype=dtype, device=cuda)
+        q = buf[offset:].view(q.shape).copy_(q)
+    launches = KERNELS["flash_attention"].launches
+    before = dict(fa_kernel.flash_attention.path_launches)
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=0)
+    assert KERNELS["flash_attention"].launches == launches + 1
+    assert fa_kernel.flash_attention.path_launches == {
+        p: n + (p == path) for p, n in before.items()}
+    _fa_close(got, fa_kernel.flash_attention_torch(q, k, v, causal=True, window=0), v, dtype)
+
+
 def test_flash_attention_rejects_bad_operands(cuda):
     q, k, v = _fa_inputs(cuda, torch.float32, 1, 4, 2, 64, 64, 32)
     with pytest.raises(ValueError, match="expected one of"):
