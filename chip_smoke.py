@@ -12,9 +12,12 @@ SNAP's soc-LiveJournal1):
           bit-identical to the host engine; CSR -> DiGraph arena
   clone   deep copy, equal buffers
   update  deletion (1e-3 |E|), insertion (1e-3 |E|) and mixed (1e-2 |E|)
-          batches through the merge_rows kernel, each held bit for bit
+          batches through the merge_rows_fused kernel (gather, merge and
+          write-back in one launch a width group), each held bit for bit
           against a twin graph run on the plain PyTorch merge; a snapshot
-          taken first must not change
+          taken first must not change; each batch timed after a warm-up
+          apply of the same plan on a copy, and split into fused_apply
+          (CUDA events) and the rest of apply (host planning)
   walk    the 42-step reverse walk (timed; unnormalised it overflows f32),
           and the normalised walk held against the plain tile cumsum
   walk_slotted
@@ -31,9 +34,11 @@ SNAP's soc-LiveJournal1):
   segment_sum
           GNN neighbour aggregation over the social CSR (each edge's row,
           its destination's features drawn from the seed) at D = 16 and
-          D = 64 through the edge_segment_partials kernel (timed: op,
-          kernel, fold, and the library index_add_), held against float64
-          sums, the library index_add_ and the plain op
+          D = 64 through the edge_segment_runs kernels, which read the
+          edges in place (timed, with its peak memory, beside the library
+          index_add_), held against float64 sums, the library index_add_
+          and the plain op, and bit for bit against itself; the CUDA path
+          must not synchronise, pad or fold
   two_tower
           the two-tower retrieval model at its FULL width (two 10M x 256
           tables, towers 1024-512-256) serving serve_p99 (512 pairs),
@@ -105,14 +110,11 @@ PARTIALS_RTOL = 2 * 127 * 2.0**-24
 SPMM_RTOL = 1e-5
 #: the segment sum's widths: gcn-cora's and schnet's d_hidden
 SEG_WIDTHS = (16, 64)
-#: the width whose edge_segment_partials launch fills the kernels line
+#: the width whose edge_segment_runs launch fills the kernels line
 SEG_ROW_D = 16
 #: float32 unit roundoff: a sum of n terms in any order is within
 #: (n-1)*U*sum|terms| of the exact sum
 U = 2.0**-24
-#: tiles per chunk when the segment partials are held against the plain
-#: version (bounds the plain version's scratch at D = 64)
-SEG_CHECK_TILES = 1 << 16
 #: two-tower serving scores, bag kernel against the plain bag (the same
 #: MLP on pooled inputs that differ in the last bits)
 SCORE_RTOL, SCORE_ATOL = 1e-5, 1e-6
@@ -239,6 +241,51 @@ def assert_same_state(a, b, what: str) -> None:
 
 
 @contextlib.contextmanager
+def timed_calls(module, name: str):
+    """CUDA-event and host time of every call to ``module.name`` while
+    active: a list of (start event, end event, host seconds)."""
+    inner = getattr(module, name)
+    spans = []
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        spans.append((start, end, time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield spans
+    finally:
+        setattr(module, name, inner)
+
+
+@contextlib.contextmanager
+def count_calls(module, names):
+    """Count the calls made to each ``module.<name>`` while active."""
+    calls = dict.fromkeys(names, 0)
+    inner = {name: getattr(module, name) for name in names}
+
+    def spy(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return inner[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(module, name, spy(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(module, name, inner[name])
+
+
+@contextlib.contextmanager
 def counted(kernels: dict, launches: dict):
     """Count the kernel launches of one main-path call: every wrapper's
     count is set to 0 on entry and added to ``launches`` on exit."""
@@ -250,15 +297,17 @@ def counted(kernels: dict, launches: dict):
 
 
 @contextlib.contextmanager
-def largest_call(module, name: str, size):
-    """Keep the arguments of the largest call (by ``size(args)``) made to
-    ``module.name`` while active; the call itself goes through unchanged."""
+def largest_call(module, name: str, size, keep=lambda args, kwargs: (args, kwargs)):
+    """Keep ``keep(args, kwargs)`` of the largest call (by ``size(args)``)
+    made to ``module.name`` while active, taken before the call (which goes
+    through unchanged) under ``seen["args"]`` and ``seen["kwargs"]``."""
     inner = getattr(module, name)
     seen = {}
 
     def spy(*args, **kwargs):
-        if not seen or size(args) > size(seen["args"]):
-            seen["args"] = args
+        if not seen or size(args) > seen["size"]:
+            seen["size"] = size(args)
+            seen["args"], seen["kwargs"] = keep(args, kwargs)
         return inner(*args, **kwargs)
 
     setattr(module, name, spy)
@@ -374,16 +423,34 @@ def main() -> None:
             deletes=edgebatch.random_deletions(rng, g.to_csr(), n_half))),
     ]
     merge_case = None
+
+    def keep_merge(args, kwargs):
+        """The arena and [lo, hi) as the apply found them, and its largest
+        width group (by rows): the other groups touch other blocks."""
+        dst_, wgt_, rows_, groups_, lo_, hi_ = args
+        big = max(groups_, key=lambda g_: g_[1])
+        clone = lambda t_: None if t_ is None else t_.clone()  # noqa: E731
+        return (dst_.clone(), wgt_.clone(), rows_.clone(), big, clone(lo_), clone(hi_)), {}
+
     for name, make in batches:
         plan = make()
-        # keep the mixed batch's largest [A,W] x [A,K] merge, as dispatched
+        # warm-up: the same plan on a copy (device and pinned host buffers);
+        # the mixed batch's copy keeps its largest merge launch (by rows),
+        # as dispatched, with the arena it read
+        warm = g.clone()
         spy = contextlib.nullcontext({}) if name != "mixed" else largest_call(
-            su_ops, "merge_rows", lambda args: args[0].numel() + args[3].numel())
+            su_ops, "_apply_cuda", lambda args: 0, keep_merge)
+        with spy as seen:
+            warm.apply(plan)
+        merge_case = seen.get("args", merge_case)
+        del warm
         t0 = sync_now()
-        with counted(KERNELS, launches), spy as seen:
+        with counted(KERNELS, launches), timed_calls(su_ops, "fused_apply") as fa:
             _, dm = g.apply(plan)
         times[f"{name}_ms"] = sync_s(t0) * 1e3
-        merge_case = seen.get("args", merge_case)
+        fused_ms = sum(a_.elapsed_time(b_) for a_, b_, _ in fa)
+        rest_ms = times[f"{name}_ms"] - sum(h_ for _, _, h_ in fa) * 1e3
+        merges = KERNELS["merge_rows_fused"].launches
         t0 = sync_now()
         twin.apply(plan, backend="torch")
         plain_ms = sync_s(t0) * 1e3
@@ -391,8 +458,9 @@ def main() -> None:
         if g.m != int(g.degrees.sum()):
             raise AssertionError(f"update/{name}: m != degrees.sum()")
         say("update", batch=name, ops=plan.n_ops, rows=plan.n_rows, dm=dm, m=g.m,
-            ms=f"{times[f'{name}_ms']:.1f}", plain_twin_ms=f"{plain_ms:.1f}",
-            twin="state_tree identical")
+            ms=f"{times[f'{name}_ms']:.1f}", fused_apply_event_ms=f"{fused_ms:.4f}",
+            rest_of_apply_ms=f"{rest_ms:.4f}", merge_launches=merges,
+            plain_twin_ms=f"{plain_ms:.1f}", twin="state_tree identical")
     for f, s in sums.items():
         if checksum(getattr(snap, f)) != s:
             raise AssertionError(f"update: snapshot buffer {f} changed")
@@ -577,23 +645,50 @@ def main() -> None:
     gamma = deg * U / (1 - deg * U)  # a sum of deg terms: within gamma*sum|terms|
     sgen = torch.Generator(device=dev).manual_seed(SEED)
     seg_row = None
+    seg_offsets = util.host(c.offsets)
+    seg_cuts = np.linspace(0, n, 5).astype(np.int64)
+    torch.cuda.reset_peak_memory_stats()
+    phase_peak_gb = 0.0
+    # the plain formulation's pieces, which the CUDA path must not call
+    plain_parts = ("pad", "edge_segment_partials_torch", "fold_live")
     for d in SEG_WIDTHS:
         h = torch.randn((n, d), generator=sgen, device=dev)
         vals = h.index_select(0, dst_l)  # [E, d]: the symmetrised graph's messages
         op = lambda: seg_ops.edge_segment_sum(seg_rows, vals, num_segments=n)  # noqa: E731
         op()  # warm-up
-        t0 = sync_now()
-        with counted(KERNELS, launches):
-            out = op()
-        times[f"seg_sum_d{d}_ms"] = sync_s(t0) * 1e3
-        expect_launches("edge_segment_partials", 1, f"segment_sum/D={d}")
+        phase_peak_gb = max(phase_peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        with count_calls(seg_kernel, plain_parts) as calls:
+            t0 = sync_now()
+            with counted(KERNELS, launches):
+                torch.cuda.set_sync_debug_mode("error")  # no nonzero, no .item()
+                try:
+                    out = op()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            times[f"seg_sum_d{d}_ms"] = sync_s(t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        phase_peak_gb = max(phase_peak_gb, peak_gb)
+        torch.cuda.reset_peak_memory_stats()
+        expect_launches("edge_segment_runs", 1, f"segment_sum/D={d}")
+        if any(calls.values()):
+            raise AssertionError(f"segment_sum/D={d}: the CUDA path called {calls}")
         if tuple(out.shape) != (n, d) or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"segment_sum/D={d}: not finite of shape ({n}, {d})")
+        if not all(torch.equal(op(), out) for _ in range(2)):
+            raise AssertionError(f"segment_sum/D={d}: two calls differ")
         op_ms = time_ms(op, reps=5)
         lib_fn = lambda: torch.zeros((n, d), device=dev).index_add_(0, seg_rows, vals)  # noqa: E731
         lib = lib_fn()
         library_ms = time_ms(lib_fn, reps=5)
-        plain = seg_ops.edge_segment_sum(seg_rows, vals, num_segments=n, backend="torch")
+        # the plain op over four row ranges (each row whole in one), so the
+        # phase never holds the plain op's padded copy of all the edges
+        plain = torch.empty_like(out)
+        for r0, r1 in zip(seg_cuts[:-1], seg_cuts[1:]):
+            e0, e1 = int(seg_offsets[r0]), int(seg_offsets[r1])
+            plain[r0:r1] = seg_ops.edge_segment_sum(seg_rows[e0:e1] - r0, vals[e0:e1],
+                                                    num_segments=r1 - r0, backend="torch")
         # float64 sums and each row's sum of |terms|, 8 columns at a time
         ref = torch.empty((n, d), dtype=torch.float64, device=dev)
         absum = torch.empty_like(ref)
@@ -618,59 +713,47 @@ def main() -> None:
         err64 = float((out64 - ref).abs().max())
         lib_err64 = float((lib64 - ref).abs().max())
         err_lib = float((out - lib).abs().max())
+        err_plain = float((out - plain).abs().max())
         outside = float(((out - lib).abs() > 1e-5 + 1e-5 * lib.abs()).float().mean())
         del lib, plain, ref, absum, bound, out, out64, lib64, diff
-        pad_ms = time_ms(lambda: seg_ops._pad(seg_rows, vals, n), reps=5)
-        # the tile kernel at the op's own operands, against its plain version
-        rows_t, vals_t = seg_ops._pad(seg_rows, vals, n)
-        del vals, op, lib_fn
         torch.cuda.empty_cache()
-        kp, kr = seg_kernel.edge_segment_partials(rows_t, vals_t, n)
-        t_tiles = rows_t.shape[0]
-        part_err = 0.0
-        for s0 in range(0, t_tiles, SEG_CHECK_TILES):
-            sl = slice(s0, s0 + SEG_CHECK_TILES)
-            pp, pr = seg_kernel.edge_segment_partials_torch(rows_t[sl], vals_t[sl], n)
-            if not torch.equal(kr[sl], pr):
-                raise AssertionError(f"edge_segment_partials/D={d}: rank_rows differ from plain")
-            ap, _ = seg_kernel.edge_segment_partials_torch(rows_t[sl], vals_t[sl].abs(), n)
-            dd = (kp[sl] - pp).abs()
-            if not bool((dd <= PARTIALS_RTOL * ap).all()):
-                raise AssertionError(
-                    f"edge_segment_partials/D={d}: partials exceed 254*2^-24*sum|terms|")
-            part_err = max(part_err, float(dd.max()))
-            del pp, pr, ap, dd
-        live = float((kr < n).float().mean())
-        fold_ms = time_ms(lambda: seg_ops._fold_live(kp, kr, n), reps=5)
-        del kp, kr
-        torch.cuda.empty_cache()
-        kernel_ms = time_ms(lambda: seg_kernel.edge_segment_partials(rows_t, vals_t, n))
-        plain_ms = time_ms(lambda: seg_kernel.edge_segment_partials_torch(rows_t, vals_t, n),
-                           reps=3)
-        say("segment_sum", D=d, E=c.m, tiles=t_tiles,
-            ms=f"{times[f'seg_sum_d{d}_ms']:.2f}", op_ms=f"{op_ms:.4f}", pad_ms=f"{pad_ms:.4f}",
-            kernel_ms=f"{kernel_ms:.4f}", fold_ms=f"{fold_ms:.4f}",
-            plain_kernel_ms=f"{plain_ms:.4f}", index_add_ms=f"{library_ms:.4f}",
-            live_rank_share=f"{live:.4f}", max_abs_err_vs_float64=f"{err64:.3e}",
+        kernel_ms = time_ms(lambda: seg_kernel.edge_segment_runs(seg_rows, vals, n))
+        phase_peak_gb = max(phase_peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+        plain_ms = None
+        if d == SEG_ROW_D:  # the whole plain op, timed for the kernels line
+            plain_ms = time_ms(lambda: seg_kernel.edge_segment_sum_torch(seg_rows, vals, n),
+                               reps=3)
+        e_edges = seg_rows.shape[0]
+        seg_bytes = 4 * e_edges + 4 * d * e_edges + 4 * d * n
+        say("segment_sum", D=d, E=e_edges, tiles=-(-e_edges // seg_kernel.EB),
+            ms=f"{times[f'seg_sum_d{d}_ms']:.2f}", op_ms=f"{op_ms:.4f}",
+            kernel_ms=f"{kernel_ms:.4f}",
+            plain_op_ms="not timed" if plain_ms is None else f"{plain_ms:.4f}",
+            index_add_ms=f"{library_ms:.4f}",
+            bound_ms=f"{seg_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+            inputs_gb=f"{before_gb:.3f}", op_peak_gb=f"{peak_gb:.3f}",
+            max_abs_err_vs_float64=f"{err64:.3e}",
             index_add_max_abs_err_vs_float64=f"{lib_err64:.3e}",
             max_abs_diff_vs_index_add=f"{err_lib:.3e}",
+            max_abs_diff_vs_plain=f"{err_plain:.3e}",
             share_outside_1e5_of_index_add=f"{outside:.3e}",
-            partials_max_abs_err=f"{part_err:.3e}",
-            tolerance="gamma(deg)*sum|terms| (op), 254*2^-24*sum|terms| (partials)")
+            bit_identical_calls=3, plain_parts_called=0, host_syncs=0,
+            tolerance="gamma(deg)*sum|terms| (vs float64), twice that (vs index_add_, plain)")
         if d == SEG_ROW_D:
-            e_pad = rows_t.numel()
             seg_row = dict(
-                name="edge_segment_partials",
-                source="src/repro_torch/csrc/edge_segment_partials.cu",
+                name="edge_segment_runs", source="src/repro_torch/csrc/edge_segment_sum.cu",
                 replaces="src/repro/kernels/edge_segment_sum/kernel.py:46",
-                shape=f"[{t_tiles},128] i32 rows + [{t_tiles},128,{d}] f32 vals",
-                max_abs_err=part_err,
-                tolerance="rank_rows bit-exact, partials 254*2^-24*sum|terms|",
+                shape=f"E={e_edges} n={n} D={d}: [E] i32 rows + [E,{d}] f32 vals, in place",
+                max_abs_err=err_plain,
+                tolerance="2*gamma(deg)*sum|terms| of the plain op",
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bytes=e_pad * (4 + 4 * d + 4 * d + 4), ops=e_pad * d,
+                bytes=seg_bytes, ops=e_edges * d,
             )
-        del rows_t, vals_t, h
+        del vals, h, op, lib_fn
         torch.cuda.empty_cache()
+    phase_peak_gb = max(phase_peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+    say("segment_sum", phase_peak_gb=f"{phase_peak_gb:.3f}",
+        plain_check="four row ranges, each row whole in one")
     del seg_rows, dst_l, deg, gamma
     phase_s["segment_sum_s"] = time.perf_counter() - p0
 
@@ -1150,23 +1233,48 @@ def main() -> None:
         bytes=nbytes, ops=vals.numel(),
     ))
 
-    out_k = su_kernel.merge_rows(*merge_case)
-    out_p = su_kernel.merge_rows_torch(*merge_case)
-    mism = sum(int((a != b).sum()) for a, b in zip(out_k, out_p))
+    # the mixed batch's largest merge launch, from the arena it read: in
+    # place against the plain version, bit for bit; timed reading that
+    # arena and writing a copy, so every launch does the same work
+    m_dst, m_wgt, m_rows, (w, a, k, d_k, moves, host_ops), m_lo, m_hi = merge_case
+    row_ops, bdl, bw = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in host_ops)
+    clone = lambda t_: None if t_ is None else t_.clone()  # noqa: E731
+
+    def merge(fn, **kw):
+        out = [clone(t_) for t_ in (m_dst, m_wgt, m_rows, m_lo, m_hi)]
+        counts = fn(*out[:3], row_ops, bdl, bw, width=w, moves=moves, lo=out[3], hi=out[4],
+                    **kw)
+        return out + [counts]
+
+    out_k = merge(su_kernel.merge_rows_fused)
+    out_p = merge(su_kernel.merge_rows_fused_torch, max_holes=d_k)
+    mism = sum(int((x_ != y_).sum()) for x_, y_ in zip(out_k, out_p) if x_ is not None)
     if mism:
-        raise AssertionError(f"merge_rows: {mism} elements differ from the plain version")
-    a, w = merge_case[0].shape
-    k = merge_case[3].shape[1]
+        raise AssertionError(f"merge_rows_fused: {mism} elements differ from the plain version")
+    work = out_k[:5]
+    timed = lambda fn, **kw: lambda: fn(*work[:3], row_ops, bdl, bw, width=w,  # noqa: E731
+                                        moves=moves, lo=work[3], hi=work[4],
+                                        src=(m_dst, m_wgt), **kw)
+    old_st, old_cap, new_st, new_cap, degs, row_ids = host_ops[0].astype(np.int64)
+    real = new_st >= 0
+    moved = (old_st >= 0) & (new_st != old_st)
+    del out_k, out_p
     rows.append(dict(
-        name="merge_rows", source="src/repro_torch/csrc/merge_rows.cu",
+        name="merge_rows_fused", source="src/repro_torch/csrc/merge_rows.cu",
         replaces="src/repro/kernels/slot_update/kernel.py:108",
-        shape=f"A={a} W={w} K={k}", max_abs_err=0.0, tolerance="bit-exact",
-        ms=time_ms(lambda: su_kernel.merge_rows(*merge_case)),
-        plain_ms=time_ms(lambda: su_kernel.merge_rows_torch(*merge_case), reps=5),
+        shape=f"A={a} W={w} K={k} (rows {int(real.sum())}, moved {int(moved.sum())})",
+        max_abs_err=0.0, tolerance="bit-exact (arena, owner map, [lo, hi), counts)",
+        ms=time_ms(timed(su_kernel.merge_rows_fused)),
+        plain_ms=time_ms(timed(su_kernel.merge_rows_fused_torch, max_holes=d_k), reps=5),
         library_ms=None,
-        bytes=a * w * 16 + a * k * 12 + a * 8,
-        ops=a * (w + k * max(int(np.log2(w)), 1)),
+        # row_ops, live prefix, run, new block (+ owner map), cleared old
+        # block, count, [lo, hi)
+        bytes=(a * 24 + int(degs.sum()) * 8 + a * k * 12 + int(new_cap[real].sum())
+               * (12 if moves else 8) + int(old_cap[moved].sum()) * 4 + a * 4
+               + (int((row_ids[real] < m_lo.shape[0]).sum()) * 8 if m_lo is not None else 0)),
+        ops=a * (w + k),
     ))
+    del work, merge_case, m_dst, m_wgt, m_rows
 
     got, ref = cb_kernel.count_degrees(src_d, n), cb_kernel.count_degrees_torch(src_d, n)
     mism = int((got != ref).sum())

@@ -11,9 +11,10 @@ buffer.  Rows are ascending with SENTINEL padding.
 
 Updates flow through the shared batch-update engine (DESIGN.md §9):
 ``core/updates.py`` canonicalizes a batch into an ``UpdatePlan`` once, then
-``apply`` runs ``kernels/slot_update.fused_apply``: gather touched rows,
-merge the sorted runs (the CUDA ``merge_rows`` kernel on the card), and
-write back in place — grown rows land directly in their new CP2AA block.
+``apply`` runs ``kernels/slot_update.fused_apply``: read the touched rows,
+merge the sorted runs and write back in place (one ``merge_rows_fused``
+launch per width group on the card) — grown rows land directly in their
+new CP2AA block.
 
 Torch tensors are mutable, so snapshot isolation is explicit: a snapshot
 shares the payload and seals it on both handles, and an update copies
@@ -329,10 +330,10 @@ class DiGraph:
         else:
             self.stats.record_inplace()
 
-        # The write-back is in place; on the GPU it scatters, off it the
-        # full-prefix gather rebuild runs unless the arena is huge and the
-        # batch tiny (``choose_scatter``).  The CUDA merge works on int32
-        # ids directly, so no vertex-id cap applies.
+        # The write-back is in place; on the GPU the fused kernel writes
+        # each row back, off it the full-prefix gather rebuild runs unless
+        # the arena is huge and the batch tiny (``choose_scatter``).  The
+        # CUDA merge works on int32 ids directly, so no vertex-id cap applies.
         touched = int(new_caps.sum() + old_caps[grow].sum())
         use_scatter = _su_ops.choose_scatter(self.cap_e, touched, self.device)
         has_moves = bool(grow.any())

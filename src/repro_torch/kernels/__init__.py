@@ -5,19 +5,19 @@ attribute counts the times it launched its kernel.
 """
 from .bsr_spmm.kernel import bsr_spmm
 from .csr_build.kernel import count_degrees
-from .edge_segment_sum.kernel import edge_segment_partials
+from .edge_segment_sum.kernel import edge_segment_runs
 from .embedding_bag.kernel import embedding_bag
 from .flash_attention.kernel import flash_attention
-from .slot_update.kernel import merge_rows
+from .slot_update.kernel import merge_rows_fused
 from .slot_walk.kernel import slot_walk_partials, tile_cumsum
 
 KERNELS = {
     "tile_cumsum": tile_cumsum,
-    "merge_rows": merge_rows,
+    "merge_rows_fused": merge_rows_fused,
     "count_degrees": count_degrees,
     "slot_walk_partials": slot_walk_partials,
     "bsr_spmm": bsr_spmm,
-    "edge_segment_partials": edge_segment_partials,
+    "edge_segment_runs": edge_segment_runs,
     "embedding_bag": embedding_bag,
     "flash_attention": flash_attention,
 }

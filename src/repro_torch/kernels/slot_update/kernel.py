@@ -1,17 +1,29 @@
-"""merge_rows: merge sorted op runs into sorted arena rows.
+"""The row merge of an update batch, fused with its gather and write-back.
 
-``merge_rows`` launches the hand-written CUDA kernel
-(``csrc/merge_rows.cu``: one block per row, rank arithmetic, O(W + K log W)
-work, exact for every int32 id) for CUDA tensors and uses its plain
-PyTorch version, ``merge_rows_torch``, only for CPU tensors.  It replaces
-the TPU kernel ``repro/kernels/slot_update/kernel.py::merge_rows_pallas``
-(one-hot matmul placement, O(W^2), ids < 2**24).  ``merge_rows.launches``
-counts kernel launches.
+``merge_rows_fused`` merges one width group of an UpdatePlan into the
+arena in place (``csrc/merge_rows.cu``): for each touched row it reads the
+live prefix from the arena, merges the sorted op run into it (deletes,
+weight upserts, ranked inserts), writes the merged row into its (possibly
+new) block, clears a vacated block, writes the owner map and the walk
+image's [lo, hi) bounds, and returns the counts.  One warp a row for rows
+of width <= 32 (ranks by ballots over the row in registers), one block a
+row for wider ones.  Exact for every int32 id.  It replaces the TPU kernel
+``repro/kernels/slot_update/kernel.py::merge_rows_pallas`` (one-hot matmul
+placement, O(W^2), ids < 2**24) with the gather and the write-back around
+it.  The wrapper launches the kernel for CUDA tensors and uses its plain
+version, ``merge_rows_fused_torch``, only for CPU tensors;
+``merge_rows_fused.launches`` counts kernel launches.
+
+``merge_rows`` is the row merge on padded [A, W] rows (the TPU kernel's
+contract): the same kernel reading the rows from the padded buffers.
 
 ``merge_rows_torch`` is the port of ``repro``'s ``_merge_rows_xla``: a
 batched branchless bisect for op membership, rank arithmetic for placement
 and a (holes+1)-wide window for delete-hole compaction; runs wider than
 ``MERGE_WINDOW_MAX_K`` take an equality-tensor + row sort formulation.
+The plain fused version gathers with ``util.rows_to_padded``, merges with
+it and scatters back (``gather_merge_torch``, ``write_back_torch``,
+``refresh_blocks_torch``).
 """
 from __future__ import annotations
 
@@ -24,52 +36,165 @@ SENTINEL = int(util.SENTINEL)
 #: Runs wider than this take the sort-based merge; narrower runs use the
 #: window-compaction merge.
 MERGE_WINDOW_MAX_K = 32
+#: Rows of width <= this take the warp kernel (one warp a row)
+WARP_ROW_MAX = 32
+#: Largest per-row stage (row ids and weights, run keys and ranks) the
+#: block kernel keeps in shared memory; wider rows stage in device memory
+SMEM_STAGE_MAX = 40 * 1024
 
 
 def _threads(w: int, k: int) -> int:
-    """Block size of the CUDA merge: one lane per slot or op, 32..256."""
+    """Block size of the block kernel (w > 32): one lane per slot or op, up
+    to 256."""
     n = max(w, k, 32)
     return min(256, 1 << (n - 1).bit_length())
 
 
-def merge_rows(d_rows, w_rows, degs, b_dst, b_wgt, b_del):
-    """Row merge: [A, W] rows x [A, K] runs -> (out_d, out_w, counts)."""
-    if d_rows.device.type == "cpu":
-        return merge_rows_torch(d_rows, w_rows, degs, b_dst, b_wgt, b_del)
-    a, w = d_rows.shape
-    k = b_dst.shape[1]
-    for t, name, dtype, shape in (
-        (d_rows, "d_rows", torch.int32, (a, w)),
-        (w_rows, "w_rows", torch.float32, (a, w)),
-        (degs, "degs", torch.int32, (a,)),
-        (b_dst, "b_dst", torch.int32, (a, k)),
-        (b_wgt, "b_wgt", torch.float32, (a, k)),
-        (b_del, "b_del", torch.int32, (a, k)),
-    ):
-        _build.require(t, name, dtype, len(shape))
-        if tuple(t.shape) != shape:
+def stage_bytes(w: int, k: int) -> int:
+    """Bytes of one row's stage in the block kernel."""
+    return 4 * (2 * w + 3 * k)
+
+
+def gather_merge_torch(dst, wgt, row_ops, b_dstdel, b_wgt, width: int,
+                       max_holes: int | None = None):
+    """Plain gather + merge of one group: the rows' live prefixes into
+    [A, width] tiles, merged with their runs -> (d_rows, w_rows, counts)."""
+    old_starts, degs = row_ops[0], row_ops[4]
+    d_rows = util.rows_to_padded(dst, old_starts, degs, width, SENTINEL)
+    w_rows = util.rows_to_padded(wgt, old_starts, degs, width, 0.0)
+    return merge_rows_torch(d_rows, w_rows, degs.contiguous(), b_dstdel[0], b_wgt,
+                            b_dstdel[1], max_holes=max_holes)
+
+
+def write_back_torch(dst, wgt, slot_rows, row_ops, d_rows, w_rows, *, moves: bool):
+    """Plain scatter write-back of one merged group (in place): a moved
+    row's old block is SENTINEL-filled, its merged row lands in its new
+    block and, with ``moves``, the owner map is written over the new block."""
+    old_starts, old_caps, new_starts, new_caps, _degs, row_ids = row_ops
+    width = d_rows.shape[1]
+    lane = torch.arange(width, dtype=torch.int64, device=dst.device)[None, :]
+    old_starts = old_starts.to(torch.int64)[:, None]
+    new_starts = new_starts.to(torch.int64)[:, None]
+    if moves:
+        moved = (new_starts != old_starts) & (old_starts >= 0)
+        clear = moved & (lane < old_caps.to(torch.int64)[:, None])
+        dst[(old_starts + lane)[clear]] = SENTINEL
+    put = (new_starts >= 0) & (lane < new_caps.to(torch.int64)[:, None])
+    idx = (new_starts + lane)[put]
+    dst[idx] = d_rows[put]
+    wgt[idx] = w_rows[put]
+    if moves:
+        slot_rows[idx] = row_ids[:, None].expand(-1, width)[put]
+
+
+def refresh_blocks_torch(lo, hi, row_ops, counts) -> None:
+    """Plain [lo, hi) refresh of one group's rows from their counts (in
+    place; pad rows carry row ids >= lo.shape[0])."""
+    new_starts, row_ids = row_ops[2], row_ops[5]
+    ok = row_ids < lo.shape[0]
+    lo[row_ids[ok].to(torch.int64)] = new_starts[ok].to(lo.dtype)
+    hi[row_ids[ok].to(torch.int64)] = (new_starts + counts)[ok].to(hi.dtype)
+
+
+def merge_rows_fused_torch(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
+                           width: int, moves: bool = False, max_holes=None,
+                           lo=None, hi=None, src=None):
+    """Plain version of ``merge_rows_fused``: gather, merge, refresh the
+    bounds, write back."""
+    src_d, src_w = (dst, wgt) if src is None else src
+    d_rows, w_rows, counts = gather_merge_torch(src_d, src_w, row_ops, b_dstdel,
+                                                b_wgt, width, max_holes)
+    if lo is not None:
+        refresh_blocks_torch(lo, hi, row_ops, counts)
+    write_back_torch(dst, wgt, slot_rows, row_ops, d_rows, w_rows, moves=moves)
+    return counts
+
+
+def merge_rows_fused(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
+                     width: int, moves: bool = False, max_holes=None,
+                     lo=None, hi=None, src=None):
+    """Merge one width group's op runs into its arena rows, in place.
+
+    ``dst``/``wgt``/``slot_rows`` [cap_e] are the arena (written in place;
+    ``slot_rows`` only with ``moves``); ``row_ops`` [6, A] int32 holds
+    old_starts/old_caps/new_starts/new_caps/degs/row_ids; ``b_dstdel``
+    [2, A, K] int32 the sorted runs' keys and delete flags, ``b_wgt``
+    [A, K] f32 their weights; ``width`` >= every row's capacity.  Pad rows
+    carry ``new_starts`` -1.  ``lo``/``hi`` (int32, the walk image's
+    bounds) are refreshed in place for rows with ids < ``lo.shape[0]``.
+    ``src`` = (src_d, src_w) reads the rows from other buffers than the
+    arena.  ``max_holes`` bounds the plain version's delete-hole window (the
+    kernel needs none).  Returns the merged counts [A] int32.
+    """
+    if dst.device.type == "cpu":
+        return merge_rows_fused_torch(
+            dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, width=width, moves=moves,
+            max_holes=max_holes, lo=lo, hi=hi, src=src)
+    src_d, src_w = (dst, wgt) if src is None else src
+    a = row_ops.shape[1] if row_ops.ndim == 2 else -1
+    k = b_dstdel.shape[2] if b_dstdel.ndim == 3 else -1
+    operands = [(dst, "dst", torch.int32, None), (wgt, "wgt", torch.float32, None),
+                (src_d, "src_d", torch.int32, None), (src_w, "src_w", torch.float32, None),
+                (row_ops, "row_ops", torch.int32, (6, a)),
+                (b_dstdel, "b_dstdel", torch.int32, (2, a, k)),
+                (b_wgt, "b_wgt", torch.float32, (a, k))]
+    if moves:
+        operands.append((slot_rows, "slot_rows", torch.int32, None))
+    if lo is not None:
+        operands += [(lo, "lo", torch.int32, None), (hi, "hi", torch.int32, tuple(lo.shape))]
+    for t, name, dtype, shape in operands:
+        _build.require(t, name, dtype, 1 if shape is None else len(shape))
+        if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    out_d = torch.empty_like(d_rows)
-    out_w = torch.empty_like(w_rows)
-    counts = torch.empty_like(degs)
+    if not 0 < width < 2**31 or max(dst.shape[0], src_d.shape[0]) >= 2**31:
+        raise ValueError("width and the arena must fit int32 offsets")
+    counts = torch.empty(a, dtype=torch.int32, device=dst.device)
     if a == 0:
-        return out_d, out_w, counts
-    scratch = torch.empty((2, a, k), dtype=torch.int32, device=d_rows.device)
+        return counts
+    scratch = None
+    if width > WARP_ROW_MAX and stage_bytes(width, k) > SMEM_STAGE_MAX:
+        scratch = torch.empty(a * stage_bytes(width, k) // 4, dtype=torch.int32,
+                              device=dst.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     lib = _build.library()
     _build.check(
         lib.repro_merge_rows(
-            d_rows.data_ptr(), w_rows.data_ptr(), degs.data_ptr(),
-            b_dst.data_ptr(), b_wgt.data_ptr(), b_del.data_ptr(),
-            a, w, k, out_d.data_ptr(), out_w.data_ptr(), counts.data_ptr(),
-            scratch.data_ptr(), _threads(w, k), _build.stream(d_rows),
+            src_d.data_ptr(), src_w.data_ptr(), dst.data_ptr(), wgt.data_ptr(),
+            ptr(slot_rows) if moves else 0, row_ops.data_ptr(), a, width,
+            b_dstdel[0].data_ptr(), b_dstdel[1].data_ptr(), b_wgt.data_ptr(), k,
+            int(bool(moves)), counts.data_ptr(), ptr(lo), ptr(hi),
+            0 if lo is None else lo.shape[0], ptr(scratch), _threads(width, k),
+            _build.stream(dst),
         ),
-        "merge_rows",
+        "merge_rows_fused",
     )
-    merge_rows.launches += 1
+    merge_rows_fused.launches += 1
+    return counts
+
+
+merge_rows_fused.launches = 0
+
+
+def merge_rows(d_rows, w_rows, degs, b_dst, b_wgt, b_del):
+    """Row merge on padded rows: [A, W] rows x [A, K] runs -> (out_d, out_w,
+    counts).  On CUDA tensors, ``merge_rows_fused`` reading the padded rows
+    and writing fresh ones."""
+    if d_rows.device.type == "cpu":
+        return merge_rows_torch(d_rows, w_rows, degs, b_dst, b_wgt, b_del)
+    a, w = d_rows.shape
+    if a * w >= 2**31:
+        raise ValueError(f"[{a}, {w}] rows exceed int32 offsets")
+    starts = torch.arange(a, dtype=torch.int32, device=d_rows.device) * w
+    caps = torch.full_like(starts, w)
+    row_ops = torch.stack([starts, caps, starts, caps, degs.to(torch.int32),
+                           torch.full_like(starts, -1)])
+    out_d = torch.empty_like(d_rows)
+    out_w = torch.empty_like(w_rows)
+    counts = merge_rows_fused(
+        out_d.view(-1), out_w.view(-1), None, row_ops,
+        torch.stack([b_dst, b_del]), b_wgt.contiguous(), width=w,
+        src=(d_rows.contiguous().view(-1), w_rows.contiguous().view(-1)))
     return out_d, out_w, counts
-
-
-merge_rows.launches = 0
 
 
 def _flat_set(size: int, idx, vals, fill, dtype, device):

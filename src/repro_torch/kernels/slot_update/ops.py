@@ -1,21 +1,27 @@
 """Fused plan apply: every width group of an UpdatePlan in one call.
 
-``fused_apply`` runs a whole UpdatePlan (DESIGN.md §9/§12):
+``fused_apply`` runs a whole UpdatePlan (DESIGN.md §9/§12).  On the card
+(``backend="cuda"``) each width group is one ``merge_rows_fused`` launch
+that reads the touched rows' live prefixes from the arena, merges the
+sorted batch runs into them (deletes, weight upserts, ranked inserts) and
+writes them back in place: grown rows land in their NEW block while their
+old block is SENTINEL-filled, and the walk image's [lo, hi) bounds are
+refreshed from the counts in the same launch.  The plain version
+(``backend="torch"``) is ``repro``'s formulation:
 
   gather   touched rows' live prefixes into [A, W] tiles per group (W =
            the group's pow-2 width class, >= every member's capacity),
-  merge    the sorted batch runs [A, K] into the sorted rows — deletes,
-           weight upserts and ranked inserts in one pass (the CUDA
-           ``merge_rows`` kernel, or its plain PyTorch version),
-  write    all merged groups back — either per-group scatters (grown rows
-           land directly in their NEW block while their old block is
-           SENTINEL-filled) or a host-mapped gather rebuild of the
-           quantized bump prefix (``choose_scatter`` picks).
+  merge    the sorted batch runs [A, K] into the sorted rows
+           (``merge_rows_torch``),
+  write    all merged groups back — either per-group scatters or a
+           host-mapped gather rebuild of the quantized bump prefix
+           (``choose_scatter`` picks).
 
-Every group is gathered from the buffers as they were before the call,
-then written in place: the caller owns ``dst``/``wgt``/``slot_rows`` (a
-DiGraph detaches snapshot-shared buffers first).  The merge counts come
-back to the host through one copy per call.
+Every group is read from the buffers as they were before the call (the
+groups' blocks are disjoint), then written in place: the caller owns
+``dst``/``wgt``/``slot_rows`` (a DiGraph detaches snapshot-shared buffers
+first).  The merge counts come back to the host through one copy per
+call, the only host synchronisation of the CUDA path.
 """
 from __future__ import annotations
 
@@ -112,25 +118,6 @@ def host_patch_layout(layout, rows, old_starts, old_caps, new_starts,
     return slot_map, owner_patch
 
 
-def _scatter_group(dst, wgt, slot_rows, merged, *, moves: bool):
-    """Per-group scatter write-back (in place)."""
-    width, row_ids, old_starts, old_caps, new_starts, new_caps, d_rows, w_rows = merged
-    dev = dst.device
-    lane = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
-    old_starts = old_starts.to(torch.int64)[:, None]
-    new_starts = new_starts.to(torch.int64)[:, None]
-    if moves:
-        moved = (new_starts != old_starts) & (old_starts >= 0)
-        clear = moved & (lane < old_caps.to(torch.int64)[:, None])
-        dst[(old_starts + lane)[clear]] = SENTINEL
-    put = (new_starts >= 0) & (lane < new_caps.to(torch.int64)[:, None])
-    idx = (new_starts + lane)[put]
-    dst[idx] = d_rows[put]
-    wgt[idx] = w_rows[put]
-    if moves:
-        slot_rows[idx] = row_ids[:, None].expand(-1, width)[put]
-
-
 def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
                 backend: str = "auto", slot_map=None, owner_patch=None,
                 lo=None, hi=None):
@@ -144,51 +131,97 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
     takes the host-mapped gather rebuild (``host_patch_layout`` supplies
     ``slot_map``/``owner_patch``) over the prefix ``slot_map`` covers, so
     the SENTINEL tail past the bump pointer is never re-read.
-    ``lo``/``hi`` (the [lo, hi) interval cache of the shared walk image)
-    are refreshed from the merge counts into new tensors.
+    ``lo``/``hi`` (the int32 [lo, hi) interval cache of the shared walk
+    image) are refreshed from the merge counts into new tensors.
+
+    ``scatter`` and the rebuild operands steer the plain version only: the
+    CUDA kernel always writes back in place, to the same state.
 
     Returns ``(dst, wgt, slot_rows, counts_list, extra)`` with ``extra``
     None or the refreshed ``(lo, hi)``.
     """
     dev = dst.device
     backend = util.resolve_backend(backend, dev)
-    any_moves = any(bool(g[4]) for g in groups)
+    if lo is not None and hi is not None:
+        lo, hi = lo.clone(), hi.clone()
+        extra = (lo, hi)
+    else:
+        lo = hi = extra = None
+    if backend == "cuda":
+        counts_all = _apply_cuda(dst, wgt, slot_rows, groups, lo, hi)
+    else:
+        counts_all = _apply_torch(dst, wgt, slot_rows, groups, lo, hi, scatter=scatter,
+                                  slot_map=slot_map, owner_patch=owner_patch)
 
-    # gather + merge every group against the pre-update buffers
+    # one counts copy to the host, split back per group
+    counts_cat = util.host(torch.cat(counts_all)) if counts_all else np.zeros(0, np.int32)
+    counts_list, at = [], 0
+    for g in groups:
+        counts_list.append(counts_cat[at:at + g[1]])
+        at += g[1]
+    return dst, wgt, slot_rows, counts_list, extra
+
+
+def _apply_cuda(dst, wgt, slot_rows, groups, lo, hi):
+    """One ``merge_rows_fused`` launch per group, in place.
+
+    The groups' host operands (mostly the runs' SENTINEL padding: ~100 MB
+    for a 1e-2·|E| batch at scale 21) are packed into one pinned buffer by
+    PyTorch's multi-threaded copy and go to the card in one asynchronous
+    copy, so nothing here waits for the device."""
+    host = []
+    for *_head, (row_ops, bdl, bw) in groups:
+        host += [np.ascontiguousarray(row_ops, np.int32).reshape(-1),
+                 np.ascontiguousarray(bdl, np.int32).reshape(-1),
+                 np.ascontiguousarray(bw, np.float32).view(np.int32).reshape(-1)]
+    if not host:
+        return []
+    pinned = torch.empty(sum(x.size for x in host), dtype=torch.int32, pin_memory=True)
+    at = 0
+    for x in host:
+        pinned[at:at + x.size].copy_(torch.from_numpy(x))
+        at += x.size
+    flat = pinned.to(dst.device, non_blocking=True)
+    counts_all, at = [], 0
+    for width, a_pad, k, _d_k, moves, _ops in groups:
+        row_ops = flat[at:at + 6 * a_pad].view(6, a_pad)
+        at += 6 * a_pad
+        bdl = flat[at:at + 2 * a_pad * k].view(2, a_pad, k)
+        at += 2 * a_pad * k
+        bw = flat[at:at + a_pad * k].view(torch.float32).view(a_pad, k)
+        at += a_pad * k
+        counts_all.append(_kernel.merge_rows_fused(
+            dst, wgt, slot_rows, row_ops, bdl, bw, width=width, moves=moves, lo=lo, hi=hi))
+    return counts_all
+
+
+def _apply_torch(dst, wgt, slot_rows, groups, lo, hi, *, scatter: bool,
+                 slot_map, owner_patch):
+    """The plain version: gather and merge every group against the
+    pre-update buffers, refresh the bounds, then write back."""
+    dev = dst.device
+    any_moves = any(bool(g[4]) for g in groups)
     merged_all, counts_all = [], []
     for width, _a_pad, _k, d_k, _moves, (row_ops, bdl, bw) in groups:
         row_ops = torch.as_tensor(row_ops, device=dev)
         bdl = torch.as_tensor(bdl, device=dev)
         bw = torch.as_tensor(bw, device=dev)
-        old_starts, old_caps, new_starts, new_caps, degs, row_ids = row_ops
-        d_rows = util.rows_to_padded(dst, old_starts, degs, width, SENTINEL)
-        w_rows = util.rows_to_padded(wgt, old_starts, degs, width, 0.0)
-        d_rows, w_rows, counts = merge_rows(
-            d_rows, w_rows, degs.contiguous(), bdl[0], bw, bdl[1],
-            backend=backend, max_holes=d_k,
-        )
+        d_rows, w_rows, counts = _kernel.gather_merge_torch(dst, wgt, row_ops, bdl, bw,
+                                                           width, d_k)
         counts_all.append(counts)
-        merged_all.append((width, row_ids, old_starts, old_caps, new_starts,
-                           new_caps, d_rows, w_rows))
-
-    extra = None
-    if lo is not None and hi is not None:
-        lo, hi = lo.clone(), hi.clone()
-        for (_w, row_ids, _os, _oc, new_starts, _nc, _d, _wr), counts in zip(
-            merged_all, counts_all
-        ):
-            ok = row_ids < lo.shape[0]  # pad rows carry row_ids >= nv
-            lo[row_ids[ok].to(torch.int64)] = new_starts[ok].to(lo.dtype)
-            hi[row_ids[ok].to(torch.int64)] = (new_starts + counts)[ok].to(hi.dtype)
-        extra = (lo, hi)
+        merged_all.append((row_ops, d_rows, w_rows))
+    if lo is not None:
+        for (row_ops, _d, _w), counts in zip(merged_all, counts_all):
+            _kernel.refresh_blocks_torch(lo, hi, row_ops, counts)
 
     if scatter:
-        for g, merged in zip(groups, merged_all):
-            _scatter_group(dst, wgt, slot_rows, merged, moves=bool(g[4]))
+        for g, (row_ops, d_rows, w_rows) in zip(groups, merged_all):
+            _kernel.write_back_torch(dst, wgt, slot_rows, row_ops, d_rows, w_rows,
+                                     moves=bool(g[4]))
     elif groups:
-        pd = torch.cat([m[6].reshape(-1) for m in merged_all]
+        pd = torch.cat([m[1].reshape(-1) for m in merged_all]
                        + [torch.full((1,), SENTINEL, dtype=torch.int32, device=dev)])
-        pw = torch.cat([m[7].reshape(-1) for m in merged_all]
+        pw = torch.cat([m[2].reshape(-1) for m in merged_all]
                        + [torch.zeros(1, dtype=torch.float32, device=dev)])
         smap = torch.as_tensor(slot_map, device=dev).to(torch.int64)
         safe = smap.clamp(0, pd.shape[0] - 1)
@@ -199,11 +232,4 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
         if any_moves:
             op = torch.as_tensor(owner_patch, device=dev)
             slot_rows[:span] = torch.where(touched, op[safe], slot_rows[:span])
-
-    # one counts copy to the host, split back per group
-    counts_cat = util.host(torch.cat(counts_all)) if counts_all else np.zeros(0, np.int32)
-    counts_list, at = [], 0
-    for g in groups:
-        counts_list.append(counts_cat[at:at + g[1]])
-        at += g[1]
-    return dst, wgt, slot_rows, counts_list, extra
+    return counts_all

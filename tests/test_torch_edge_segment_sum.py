@@ -1,4 +1,4 @@
-"""edge_segment_sum parity: the port's op and tile kernel against ``repro``'s.
+"""edge_segment_sum parity: the port's op and tile partials against ``repro``'s.
 
 ``repro``'s Pallas kernel runs in interpret mode.  Its tile reduction is a
 one-hot matmul; the port sums each run in order (the plain version by
@@ -64,7 +64,7 @@ def test_edge_segment_sum_pads_edges_not_columns(d, d_tile):
     rng = np.random.default_rng(d)
     rows = _sorted_rows(rng, 300, 40)
     vals = rng.standard_normal((300, d)).astype(np.float32)
-    rows_t, vals_t = seg_ops._pad(torch.from_numpy(rows), torch.from_numpy(vals), 40)
+    rows_t, vals_t = seg_kernel.pad(torch.from_numpy(rows), torch.from_numpy(vals), 40)
     assert tuple(vals_t.shape) == (3, 128, d)
     assert bool((rows_t.reshape(-1)[300:] == 40).all())
     assert bool((vals_t.reshape(-1, d)[300:] == 0).all())
@@ -80,6 +80,48 @@ def test_edge_segment_sum_no_edges():
     got = seg_ops.edge_segment_sum(torch.zeros(0, dtype=torch.int32), torch.zeros(0, 3),
                                    num_segments=4)
     assert torch.equal(got, torch.zeros(4, 3))
+
+
+@pytest.mark.parametrize("kind", ["int64", "all_dropped", "negative", "no_edges_d5"])
+def test_edge_segment_sum_host_glue_matches_repro(kind):
+    """Row dtypes and edge cases the op's host side sees, through the plain
+    op against ``repro``'s: int64 rows, every row dropped (>= n), negative
+    rows (dropped as ``repro``'s rank rows drop them), no edges."""
+    rng = np.random.default_rng(11)
+    n, d = 30, 5
+    rows = _sorted_rows(rng, 700, n, dropped=4).astype(np.int64)
+    if kind == "all_dropped":
+        rows = np.sort(rng.integers(n, n + 9, 700))
+    elif kind == "negative":
+        rows[:150] = np.sort(rng.integers(-5, 0, 150))
+    elif kind == "no_edges_d5":
+        rows = rows[:0]
+    vals = rng.standard_normal((rows.shape[0], d)).astype(np.float32)
+    got = seg_ops.edge_segment_sum(torch.from_numpy(rows), torch.from_numpy(vals),
+                                   num_segments=n)
+    assert got.shape == (n, d) and got.dtype == torch.float32
+    if rows.shape[0] == 0 or kind == "all_dropped":
+        assert torch.equal(got, torch.zeros(n, d))
+    if rows.shape[0]:
+        exp = np.asarray(j_ops.edge_segment_sum(
+            jnp.asarray(rows.astype(np.int32)), jnp.asarray(vals), num_segments=n,
+            interpret=True))
+        assert (np.abs(got.numpy() - exp) <= _sum_bound(np.where(rows < 0, n, rows), vals, n)
+                ).all()
+    # the CUDA wrapper's plain version on CPU tensors is the plain op
+    assert torch.equal(seg_kernel.edge_segment_runs(torch.from_numpy(rows),
+                                                    torch.from_numpy(vals), n), got)
+
+
+def test_edge_segment_rows_int32_keeps_wide_rows_dropped():
+    """The kernel reads int32 rows; wider rows are clamped to [-1, n] first,
+    so a row beyond int32 stays dropped and the rows stay ascending."""
+    rows = torch.tensor([-2**40, -3, 0, 5, 9, 10, 2**31, 2**40], dtype=torch.int64)
+    got = seg_kernel.rows_int32(rows, 10)
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert got.tolist() == [-1, -1, 0, 5, 9, 10, 10, 10]
+    same = torch.arange(6, dtype=torch.int32)[::2]
+    assert seg_kernel.rows_int32(same, 3).is_contiguous()
 
 
 def _tiles(rng, t, sink, kind):
@@ -104,14 +146,13 @@ def test_edge_segment_partials_matches_pallas_interpret(kind, dp, d_tile):
     exp_p, exp_r = j_kernel.edge_segment_partials(
         jnp.asarray(rows), jnp.asarray(vals), d_tile=d_tile, sink=sink, interpret=True)
     t_rows, t_vals = torch.from_numpy(rows), torch.from_numpy(vals)
-    for got_p, got_r in (seg_kernel.edge_segment_partials_torch(t_rows, t_vals, sink),
-                         seg_kernel.edge_segment_partials(t_rows, t_vals, sink)):
-        np.testing.assert_array_equal(got_r.numpy(), np.asarray(exp_r))
-        # each run has at most 128 terms: two orders within 2·127·2^-24·Σ|t|
-        absum, _ = seg_kernel.edge_segment_partials_torch(t_rows, t_vals.abs(), sink)
-        assert (np.abs(got_p.numpy() - np.asarray(exp_p))
-                <= 2 * 127 * U * absum.numpy()).all()
-        # unused ranks hold 0
-        n_runs = 1 + (rows[:, 1:] != rows[:, :-1]).sum(axis=1)
-        unused = np.arange(128)[None] >= n_runs[:, None]
-        assert (got_p.numpy()[unused] == 0).all()
+    got_p, got_r = seg_kernel.edge_segment_partials_torch(t_rows, t_vals, sink)
+    np.testing.assert_array_equal(got_r.numpy(), np.asarray(exp_r))
+    # each run has at most 128 terms: two orders within 2·127·2^-24·Σ|t|
+    absum, _ = seg_kernel.edge_segment_partials_torch(t_rows, t_vals.abs(), sink)
+    assert (np.abs(got_p.numpy() - np.asarray(exp_p))
+            <= 2 * 127 * U * absum.numpy()).all()
+    # unused ranks hold 0
+    n_runs = 1 + (rows[:, 1:] != rows[:, :-1]).sum(axis=1)
+    unused = np.arange(128)[None] >= n_runs[:, None]
+    assert (got_p.numpy()[unused] == 0).all()

@@ -130,24 +130,37 @@ def _wrapper_calls():
            torch.tensor([0, 1, 1], dtype=torch.int32),
            torch.from_numpy(rng.random((3, 128, 128), dtype=np.float32)),
            torch.from_numpy(rng.random((256, 8), dtype=np.float32)))
-    seg_vals = torch.from_numpy(rng.random((3, 128, 16), dtype=np.float32))
+    seg_rows = torch.from_numpy(np.sort(rng.integers(-1, 10, 300)).astype(np.int32))
+    seg_vals = torch.from_numpy(rng.random((300, 16), dtype=np.float32))
+    arena = (torch.tensor([1, 4, 9, 2**31 - 1] + [2**31 - 1] * 4, dtype=torch.int32),
+             torch.ones(8), torch.tensor([0] * 4 + [8] * 4, dtype=torch.int32))
+    # row 0 grows from the block at 0 into the block at 4
+    row_ops = torch.tensor([[0], [4], [4], [4], [3], [0]], dtype=torch.int32)
+    blocks = (torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
+
+    def fused(fn):
+        d, w, s, lo, hi = (t.clone() for t in arena + blocks)
+        counts = fn(d, w, s, row_ops, torch.stack([merge[3], merge[5]]), merge[4],
+                    width=4, moves=True, lo=lo, hi=hi)
+        return d, w, s, lo, hi, counts
+
     table = torch.from_numpy(rng.random((20, 8), dtype=np.float32))
     bags = torch.from_numpy(rng.integers(-1, 25, (6, 4)).astype(np.int32))
     wts = torch.from_numpy(rng.random((6, 4), dtype=np.float32))
     q = torch.from_numpy(rng.standard_normal((1, 4, 32, 16), dtype=np.float32))
     kv = torch.from_numpy(rng.standard_normal((1, 2, 32, 16), dtype=np.float32))
     return {
-        "edge_segment_partials": (
-            lambda: seg_kernel.edge_segment_partials(rows, seg_vals, 8),
-            lambda: seg_kernel.edge_segment_partials_torch(rows, seg_vals, 8)),
+        "edge_segment_runs": (
+            lambda: seg_kernel.edge_segment_runs(seg_rows, seg_vals, 8),
+            lambda: seg_kernel.edge_segment_sum_torch(seg_rows, seg_vals, 8)),
         "embedding_bag": (lambda: bag_kernel.embedding_bag(table, bags, wts, "mean"),
                           lambda: bag_kernel.embedding_bag_torch(table, bags, wts, "mean")),
         "tile_cumsum": (lambda: sw_kernel.tile_cumsum(vals),
                         lambda: sw_kernel.tile_cumsum_torch(vals)),
         "count_degrees": (lambda: cb_kernel.count_degrees(src, 8),
                           lambda: cb_kernel.count_degrees_torch(src, 8)),
-        "merge_rows": (lambda: su_kernel.merge_rows(*merge),
-                       lambda: su_kernel.merge_rows_torch(*merge)),
+        "merge_rows_fused": (lambda: fused(su_kernel.merge_rows_fused),
+                             lambda: fused(su_kernel.merge_rows_fused_torch)),
         "slot_walk_partials": (lambda: sw_kernel.slot_walk_partials(rows, vals, 8),
                                lambda: sw_kernel.slot_walk_partials_torch(rows, vals, 8)),
         "bsr_spmm": (lambda: bsr_kernel.bsr_spmm(*bsr, d_tile=8),

@@ -98,7 +98,9 @@ def _merge_case(rng, a, w, k, full=False):
 def test_merge_rows_bit_exact(cuda, a, w, k, full):
     case = _merge_case(np.random.default_rng(a * w + k), a, w, k, full)
     args = [torch.from_numpy(x).to(cuda) for x in case]
+    before = KERNELS["merge_rows_fused"].launches
     od, ow, cnt = su_kernel.merge_rows(*args)
+    assert KERNELS["merge_rows_fused"].launches == before + 1
     pd, pw, pc = su_kernel.merge_rows_torch(*args)
     assert torch.equal(od, pd) and torch.equal(ow, pw) and torch.equal(cnt, pc)
     if w <= 1024:
@@ -106,6 +108,149 @@ def test_merge_rows_bit_exact(cuda, a, w, k, full):
         np.testing.assert_array_equal(od.cpu().numpy(), rd)
         np.testing.assert_array_equal(ow.cpu().numpy(), rw)
         np.testing.assert_array_equal(cnt.cpu().numpy(), rc)
+
+
+def _fused_case(rng, a, w, k, *, grow, pad, full):
+    """One width group of a plan on a small arena: rows in place or grown
+    into a new block, pad rows, sorted op runs whose inserts fit the new
+    block.  Untouched slots hold noise, so a stray write shows."""
+    cap_e = 2 * a * w + 64
+    dst = rng.integers(0, 1 << 30, cap_e).astype(np.int32)
+    wgt = rng.standard_normal(cap_e).astype(np.float32)
+    slot_rows = rng.integers(0, 1 << 20, cap_e).astype(np.int32)
+    nv = a + 3
+    row_ops = np.zeros((6, a), np.int32)
+    bd = np.full((a, k), SENT, np.int32)
+    bw = np.zeros((a, k), np.float32)
+    bl = np.zeros((a, k), np.int32)
+    row_ids = rng.permutation(nv)[:a].astype(np.int32)
+    for r in range(a):
+        if r >= a - pad:  # pad row: no block, a SENTINEL run
+            row_ops[:, r] = (-1, 0, -1, 0, 0, nv + 7)
+            continue
+        moved = grow and r % 2 == 0
+        old_cap = max(w // 2, 1) if moved else w
+        old_start = 32 + r * w
+        new_start = 32 + (a + r) * w if moved else old_start
+        deg = old_cap if full else int(rng.integers(0, old_cap + 1))
+        vals = np.sort(rng.choice(4 * w + 64, deg, replace=False))
+        dst[old_start:old_start + deg] = vals
+        dst[old_start + deg:old_start + old_cap] = SENT
+        pool = np.unique(np.concatenate([vals, rng.integers(0, 4 * w + 64, k)]))
+        ops = np.sort(rng.choice(pool, min(int(rng.integers(0, k + 1)), pool.size),
+                                 replace=False))
+        dels = rng.integers(0, 2, ops.size).astype(bool)
+        new = ~np.isin(ops, vals) & ~dels
+        # flip inserts of new keys to deletes until the row fits its block
+        over = deg + int(new.sum()) - w
+        if over > 0:
+            dels[np.nonzero(new)[0][:over]] = True
+        bd[r, :ops.size] = ops
+        bw[r, :ops.size] = rng.random(ops.size)
+        bl[r, :ops.size] = dels
+        row_ops[:, r] = (old_start, old_cap, new_start, w, deg, row_ids[r])
+    lo = rng.integers(0, 1000, nv).astype(np.int32)
+    hi = rng.integers(0, 1000, nv).astype(np.int32)
+    return (dst, wgt, slot_rows, row_ops, np.stack([bd, bl]), bw), (lo, hi)
+
+
+@pytest.mark.parametrize(
+    "a,w,k,grow,pad,full",
+    [(40, 32, 8, False, 3, False), (40, 32, 8, True, 3, False), (64, 32, 64, True, 0, False),
+     (16, 32, 16, False, 0, True), (7, 32, 4, True, 7, False), (24, 64, 8, True, 5, False),
+     (8, 1024, 64, True, 2, False), (4, 512, 1024, False, 0, False),
+     (3, 32768, 512, True, 1, False), (2, 16384, 1024, False, 0, True)],
+)
+def test_merge_rows_fused_matches_plain(cuda, a, w, k, grow, pad, full):
+    """In place and grown rows, pad rows, full rows, runs wider than a warp
+    and hub-wide rows (staged in device memory): the arena, the owner map,
+    the [lo, hi) refresh and the counts bit for bit."""
+    rng = np.random.default_rng(a * w + k + grow)
+    case, blocks = _fused_case(rng, a, w, k, grow=grow, pad=pad, full=full)
+    moves = grow
+
+    def run(fn):
+        dst, wgt, slot_rows, row_ops, bdl, bw = (torch.from_numpy(x).to(cuda) for x in case)
+        lo, hi = (torch.from_numpy(x).to(cuda) for x in blocks)
+        counts = fn(dst, wgt, slot_rows, row_ops, bdl, bw, width=w, moves=moves, lo=lo, hi=hi)
+        return dst, wgt, slot_rows, lo, hi, counts
+
+    before = KERNELS["merge_rows_fused"].launches
+    got = run(su_kernel.merge_rows_fused)
+    assert KERNELS["merge_rows_fused"].launches == before + 1
+    exp = run(su_kernel.merge_rows_fused_torch)
+    for name, g, e_ in zip(("dst", "wgt", "slot_rows", "lo", "hi", "counts"), got, exp):
+        assert torch.equal(g, e_), name
+    assert int(got[5][a - pad:].abs().sum()) == 0  # pad rows merge nothing
+
+
+def test_merge_rows_fused_rejects_bad_operands(cuda):
+    case, _ = _fused_case(np.random.default_rng(0), 4, 32, 4, grow=False, pad=0, full=False)
+    dst, wgt, slot_rows, row_ops, bdl, bw = (torch.from_numpy(x).to(cuda) for x in case)
+    with pytest.raises(ValueError, match="float32"):
+        su_kernel.merge_rows_fused(dst, wgt.double(), slot_rows, row_ops, bdl, bw, width=32)
+    with pytest.raises(ValueError, match="row_ops"):
+        su_kernel.merge_rows_fused(dst, wgt, slot_rows, row_ops[:5], bdl, bw, width=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        su_kernel.merge_rows_fused(dst, wgt, slot_rows, row_ops, bdl, bw.t().contiguous().t(),
+                                   width=32)
+
+
+def test_digraph_batch_kinds_cuda_match_plain(cuda):
+    """Delete, insert and mixed batches through the fused kernel against the
+    plain backend, with a warm walk image so the [lo, hi) refresh runs."""
+    c = synthetic.make_graph("social", scale=11, edge_factor=8, seed=9, device=cuda)
+    g = DiGraph.from_csr(c, device=cuda)
+    p = g.clone()
+    for x in (g, p):
+        x.reverse_walk(1)  # warm the image's [lo, hi) blocks
+    rng = np.random.default_rng(3)
+    for kind in ("delete", "insert", "mixed"):
+        plan = updates.plan_update(
+            inserts=None if kind == "delete" else edgebatch.random_insertions(rng, c.n, 900),
+            deletes=None if kind == "insert" else edgebatch.random_deletions(
+                rng, g.to_csr(), 900),
+        )
+        before = KERNELS["merge_rows_fused"].launches
+        g.apply(plan, backend="cuda")
+        assert KERNELS["merge_rows_fused"].launches > before
+        p.apply(plan, backend="torch")
+        tg, tp = g.state_tree(), p.state_tree()
+        for key in tg:
+            np.testing.assert_array_equal(tg[key], tp[key], err_msg=f"{kind}: {key}")
+        for bg, bp in zip(g.to_walk_image().device_blocks(), p.to_walk_image().device_blocks()):
+            assert torch.equal(bg, bp), kind
+
+
+def test_fused_apply_cuda_syncs_only_for_counts(cuda, monkeypatch):
+    """On the card ``fused_apply`` synchronises with the host once: the
+    counts copy (no nonzero, no boolean-mask indexing, no .item())."""
+    import warnings
+
+    from repro_torch.kernels.slot_update import ops as su_ops
+
+    c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=2, device=cuda)
+    g = DiGraph.from_csr(c, device=cuda)
+    g.reverse_walk(1)
+    inner, syncs = su_ops.fused_apply, []
+
+    def watched(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out = inner(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs.append([str(w.message) for w in seen if "synchroniz" in str(w.message)])
+        return out
+
+    monkeypatch.setattr(su_ops, "fused_apply", watched)
+    rng = np.random.default_rng(4)
+    g.apply(updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 500),
+                                deletes=edgebatch.random_deletions(rng, g.to_csr(), 500)))
+    assert len(syncs) == 1 and len(syncs[0]) == 1, syncs
 
 
 def test_digraph_cuda_matches_plain_backend(cuda):
@@ -240,74 +385,80 @@ def test_ranked_walk_cuda_matches_plain(cuda):
         torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-6)
 
 
-def _segment_tiles(rng, n_tiles, sink, kind):
-    """[T, 128] rows ascending within each tile (hubs, dead rows >= sink)."""
-    if kind == "all_sink":
-        return np.full((n_tiles, 128), sink, np.int32)
-    if kind == "runs_128":  # every slot its own run
-        return np.tile(np.arange(128, dtype=np.int32), (n_tiles, 1))
-    rows = np.sort(rng.integers(0, sink + 3, (n_tiles, 128)), axis=1)
-    if kind == "hub":
-        rows[:, :100] = rows[:, :1]
-    return rows.astype(np.int32)
+def _segment_rows(rng, e, n, kind):
+    """[E] ascending edge rows for the segment sum's edge cases."""
+    if kind == "all_dropped":
+        return np.sort(rng.integers(n, n + 9, e))
+    if kind == "negative":
+        return np.sort(rng.integers(-6, n + 2, e))
+    if kind == "tile_rows":  # runs that begin exactly on tile boundaries
+        return np.repeat(np.arange(n), [128, 256, 128, 1, 127, 384] * (n // 6) + [0] * (n % 6))[:e]
+    rows = np.sort(rng.integers(0, n + 2, e))  # some >= n
+    if kind == "hub":  # one row of 20,000 edges: ~157 tiles
+        rows = np.sort(np.concatenate([rows, np.full(20_000, n // 2)]))
+    return rows
 
 
-@pytest.mark.parametrize("kind", ["random", "hub", "all_sink", "runs_128"])
-@pytest.mark.parametrize("n_tiles,dp", [(1, 1), (7, 3), (7, 6), (1000, 16), (33, 64),
-                                        (5, 200), (9, 256)])
-def test_edge_segment_partials_matches_plain(cuda, n_tiles, dp, kind):
-    rng = np.random.default_rng(n_tiles * dp)
-    sink = 200
-    rows = torch.from_numpy(_segment_tiles(rng, n_tiles, sink, kind)).to(cuda)
-    vals = torch.from_numpy(
-        rng.standard_normal((n_tiles, 128, dp)).astype(np.float32)).to(cuda)
-    before = KERNELS["edge_segment_partials"].launches
-    got_p, got_r = seg_kernel.edge_segment_partials(rows, vals, sink)
-    assert KERNELS["edge_segment_partials"].launches == before + 1
-    exp_p, exp_r = seg_kernel.edge_segment_partials_torch(rows, vals, sink)
-    assert torch.equal(got_r, exp_r)
-    # signed terms: a run of n <= 128 summed in two orders differs by at
-    # most 2*(n-1)*2^-24 times the run's sum of |terms|
-    absum, _ = seg_kernel.edge_segment_partials_torch(rows, vals.abs(), sink)
-    assert bool(((got_p - exp_p).abs() <= 2 * 127 * U * absum).all())
-    starts = torch.ones_like(rows, dtype=torch.bool)
-    starts[:, 1:] = rows[:, 1:] != rows[:, :-1]
-    unused = torch.arange(128, device=cuda)[None] >= starts.sum(dim=1, keepdim=True)
-    assert bool((got_p[unused] == 0).all())
-
-
-@pytest.mark.parametrize("e,d", [(1, 1), (300, 16), (5000, 64), (777, 5), (2000, 200)])
-def test_edge_segment_sum_cuda_matches_plain(cuda, e, d):
+@pytest.mark.parametrize(
+    "e,d,kind",
+    [(0, 16, "random"), (1, 1, "random"), (127, 3, "random"), (128, 5, "random"),
+     (129, 16, "random"), (5000, 64, "random"), (300, 16, "random"), (777, 5, "random"),
+     (2000, 200, "random"), (1000, 256, "random"), (3000, 16, "all_dropped"),
+     (3000, 16, "negative"), (1024, 16, "tile_rows"), (1024, 3, "tile_rows"),
+     (3000, 16, "hub"), (3000, 3, "hub"), (700, 64, "misaligned"),
+     (700, 16, "misaligned"), (900, 16, "int64")],
+)
+def test_edge_segment_sum_cuda_matches_plain(cuda, e, d, kind):
     rng = np.random.default_rng(e + d)
-    n = max(e // 20, 2)
-    rows_np = np.sort(rng.integers(0, n + 2, e)).astype(np.int32)  # some >= n
-    rows = torch.from_numpy(rows_np).to(cuda)
+    n = max(e // 20, 6)
+    rows_np = _segment_rows(rng, e, n, kind)
+    e = rows_np.shape[0]
+    rows = torch.from_numpy(rows_np.astype(np.int64 if kind == "int64" else np.int32)).to(cuda)
     vals = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(cuda)
-    before = KERNELS["edge_segment_partials"].launches
+    if kind == "misaligned":  # a contiguous view 4 bytes into its storage
+        buf = torch.zeros(e * d + 1, device=cuda)
+        buf[1:] = vals.reshape(-1)
+        vals = buf[1:].view(e, d)
+        assert vals.is_contiguous() and vals.data_ptr() % 16
+    before = KERNELS["edge_segment_runs"].launches
     got = seg_ops.edge_segment_sum(rows, vals, num_segments=n)
-    assert KERNELS["edge_segment_partials"].launches == before + 1
+    assert KERNELS["edge_segment_runs"].launches == before + (e > 0)
     exp = seg_ops.edge_segment_sum(rows, vals, num_segments=n, backend="torch")
-    ref = seg_ops.edge_segment_sum_reference(rows, vals, num_segments=n)
-    cnt = torch.bincount(rows.long(), minlength=n + 2)[:n, None].to(torch.float32)
-    absum = seg_ops.edge_segment_sum_reference(rows, vals.abs(), num_segments=n)
-    bound = 2 * torch.clamp(cnt - 1, min=0) * U * absum
-    assert got.shape == (n, d)
+    ref = seg_ops.edge_segment_sum_reference(torch.where(rows < 0, n, rows), vals,
+                                             num_segments=n)
+    kept_rows = rows[(rows >= 0) & (rows < n)].long()
+    cnt = torch.bincount(kept_rows, minlength=n)[:n, None].to(torch.float32)
+    absum = seg_ops.edge_segment_sum_reference(torch.where(rows < 0, n, rows), vals.abs(),
+                                               num_segments=n)
+    bound = 2 * torch.clamp(cnt - 1, min=0) * U * absum  # two orders of deg terms
+    assert got.shape == (n, d) and got.dtype == torch.float32
     assert bool(((got - exp).abs() <= bound).all())
     assert bool(((got - ref).abs() <= bound).all())
+    assert bool((got[cnt[:, 0] == 0] == 0).all())  # rows without edges
+    assert torch.equal(seg_ops.edge_segment_sum(rows, vals, num_segments=n), got)
 
 
-def test_edge_segment_partials_rejects_bad_operands(cuda):
-    rows = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
-    vals = torch.zeros((2, 128, 8), device=cuda)
+def test_edge_segment_sum_cuda_is_deterministic(cuda):
+    """Two calls on a hub row spanning ~157 tiles and many seams, D = 64:
+    the same bits (no atomics; each row summed in edge order)."""
+    rng = np.random.default_rng(5)
+    rows = torch.from_numpy(_segment_rows(rng, 60_000, 9000, "hub").astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(
+        rng.standard_normal((rows.shape[0], 64)).astype(np.float32)).to(cuda)
+    first = seg_ops.edge_segment_sum(rows, vals, num_segments=9000)
+    for _ in range(2):
+        assert torch.equal(seg_ops.edge_segment_sum(rows, vals, num_segments=9000), first)
+
+
+def test_edge_segment_runs_rejects_bad_operands(cuda):
+    rows = torch.zeros(256, dtype=torch.int32, device=cuda)
+    vals = torch.zeros((256, 8), device=cuda)
     with pytest.raises(ValueError, match="float32"):
-        seg_kernel.edge_segment_partials(rows, vals.double(), 4)
+        seg_kernel.edge_segment_runs(rows, vals.double(), 4)
+    with pytest.raises(ValueError, match="rows"):
+        seg_kernel.edge_segment_runs(rows[:100], vals, 4)
     with pytest.raises(ValueError, match="int32"):
-        seg_kernel.edge_segment_partials(rows.long(), vals, 4)
-    with pytest.raises(ValueError, match="tiles|expected"):
-        seg_kernel.edge_segment_partials(rows[:, :64].contiguous(), vals[:, :64].contiguous(), 4)
-    off = torch.zeros(2 * 128 * 8 + 1, device=cuda)[1:].view(2, 128, 8)  # 4-byte offset
-    with pytest.raises(ValueError, match="aligned"):
-        seg_kernel.edge_segment_partials(rows, off, 4)
+        seg_kernel.edge_segment_runs(rows, vals, 2**31)
 
 
 def _bag_case(rng, v, d, b, k):
