@@ -16,8 +16,9 @@ SNAP's soc-LiveJournal1):
           write-back in one launch a width group), each held bit for bit
           against a twin graph run on the plain PyTorch merge; a snapshot
           taken first must not change; each batch timed after a warm-up
-          apply of the same plan on a copy, and split into fused_apply
-          (CUDA events) and the rest of apply (host planning)
+          apply of the same plan on a copy (timed too, as the batch's
+          first call), and split into fused_apply (CUDA events) and the
+          rest of apply (host planning)
   walk    the 42-step reverse walk (timed; unnormalised it overflows f32),
           and the normalised walk held against the plain tile cumsum
   walk_slotted
@@ -37,8 +38,10 @@ SNAP's soc-LiveJournal1):
           D = 64 through the edge_segment_runs kernels, which read the
           edges in place (timed, with its peak memory, beside the library
           index_add_), held against float64 sums, the library index_add_
-          and the plain op, and bit for bit against itself; the CUDA path
-          must not synchronise, pad or fold
+          and the plain op, and bit for bit against itself; at D = 16
+          also on small-integer messages, whose sums are exact, bit for bit
+          against index_add_ (every row, the hubs' ~150-tile seam walks
+          included); the CUDA path must not synchronise, pad or fold
   two_tower
           the two-tower retrieval model at its FULL width (two 10M x 256
           tables, towers 1024-512-256) serving serve_p99 (512 pairs),
@@ -233,6 +236,25 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_fresh_ms(make, fn, reps: int = 20) -> float:
+    """Mean device time of ``fn(make())`` over ``reps`` calls after a
+    warm-up, for a ``fn`` that writes its operands: each call gets fresh
+    ones from ``make``, made before its timed span."""
+    fn(make())
+    spans = []
+    for _ in range(reps):
+        args = make()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(args)
+        end.record()
+        spans.append((start, end))
+        del args
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans) / reps
+
+
 def assert_same_state(a, b, what: str) -> None:
     ta, tb = a.state_tree(), b.state_tree()
     for key in ta:
@@ -333,7 +355,6 @@ def main() -> None:
     from repro_torch.kernels.edge_segment_sum import kernel as seg_kernel
     from repro_torch.kernels.edge_segment_sum import ops as seg_ops
     from repro_torch.kernels.embedding_bag import kernel as bag_kernel
-    from repro_torch.kernels.embedding_bag import ops as bag_ops
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.slot_update import kernel as su_kernel
@@ -434,16 +455,19 @@ def main() -> None:
 
     for name, make in batches:
         plan = make()
-        # warm-up: the same plan on a copy (device and pinned host buffers);
-        # the mixed batch's copy keeps its largest merge launch (by rows),
-        # as dispatched, with the arena it read
+        # warm-up: the same plan on a copy, timed as the first call of this
+        # batch (the batch a stream of updates starts with pays its costs)
         warm = g.clone()
-        spy = contextlib.nullcontext({}) if name != "mixed" else largest_call(
-            su_ops, "_apply_cuda", lambda args: 0, keep_merge)
-        with spy as seen:
+        with timed_calls(su_ops, "fused_apply") as fa0:
+            t0 = sync_now()
             warm.apply(plan)
-        merge_case = seen.get("args", merge_case)
+            first_ms = sync_s(t0) * 1e3
+        first_fused_ms = sum(a_.elapsed_time(b_) for a_, b_, _ in fa0)
         del warm
+        if name == "mixed":  # its largest merge launch (by rows), as dispatched
+            with largest_call(su_ops, "_apply_cuda", lambda args: 0, keep_merge) as seen:
+                g.clone().apply(plan)
+            merge_case = seen["args"]
         t0 = sync_now()
         with counted(KERNELS, launches), timed_calls(su_ops, "fused_apply") as fa:
             _, dm = g.apply(plan)
@@ -459,7 +483,8 @@ def main() -> None:
             raise AssertionError(f"update/{name}: m != degrees.sum()")
         say("update", batch=name, ops=plan.n_ops, rows=plan.n_rows, dm=dm, m=g.m,
             ms=f"{times[f'{name}_ms']:.1f}", fused_apply_event_ms=f"{fused_ms:.4f}",
-            rest_of_apply_ms=f"{rest_ms:.4f}", merge_launches=merges,
+            rest_of_apply_ms=f"{rest_ms:.4f}", first_call_ms=f"{first_ms:.1f}",
+            first_call_fused_apply_event_ms=f"{first_fused_ms:.4f}", merge_launches=merges,
             plain_twin_ms=f"{plain_ms:.1f}", twin="state_tree identical")
     for f, s in sums.items():
         if checksum(getattr(snap, f)) != s:
@@ -749,6 +774,23 @@ def main() -> None:
                 ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bytes=seg_bytes, ops=e_edges * d,
             )
+        if d == SEG_ROW_D:
+            # small-integer messages: every partial sum is exact in float32,
+            # so the op must equal index_add_ bit for bit on every row, and
+            # one seam dropped or added twice on a hub row would show
+            max_deg = int(c.degrees.max())
+            if max_deg * 8 >= 2**24:
+                raise AssertionError("segment_sum: integer sums would not be exact")
+            qgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+            vq = torch.randint(-8, 9, (n, d), generator=qgen, device=dev).float().index_select(
+                0, dst_l)
+            exact = torch.equal(seg_ops.edge_segment_sum(seg_rows, vq, num_segments=n),
+                                torch.zeros((n, d), device=dev).index_add_(0, seg_rows, vq))
+            if not exact:
+                raise AssertionError(f"segment_sum/D={d}: integer messages not summed exactly")
+            say("segment_sum", D=d, integer_messages="equal to index_add_",
+                max_row_edges=max_deg, max_row_tiles=-(-max_deg // seg_kernel.EB) + 1)
+            del vq
         del vals, h, op, lib_fn
         torch.cuda.empty_cache()
     phase_peak_gb = max(phase_peak_gb, torch.cuda.max_memory_allocated() / 1e9)
@@ -1234,47 +1276,54 @@ def main() -> None:
     ))
 
     # the mixed batch's largest merge launch, from the arena it read: in
-    # place against the plain version, bit for bit; timed reading that
-    # arena and writing a copy, so every launch does the same work
+    # place against the plain version, bit for bit; timed in place, each
+    # call on a fresh copy of that arena (copied outside its timed span)
     m_dst, m_wgt, m_rows, (w, a, k, d_k, moves, host_ops), m_lo, m_hi = merge_case
     row_ops, bdl, bw = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in host_ops)
     clone = lambda t_: None if t_ is None else t_.clone()  # noqa: E731
+    fresh = lambda: [clone(t_) for t_ in (m_dst, m_wgt, m_rows, m_lo, m_hi)]  # noqa: E731
 
-    def merge(fn, **kw):
-        out = [clone(t_) for t_ in (m_dst, m_wgt, m_rows, m_lo, m_hi)]
+    def merge(fn, out, **kw):
         counts = fn(*out[:3], row_ops, bdl, bw, width=w, moves=moves, lo=out[3], hi=out[4],
                     **kw)
         return out + [counts]
 
-    out_k = merge(su_kernel.merge_rows_fused)
-    out_p = merge(su_kernel.merge_rows_fused_torch, max_holes=d_k)
+    out_k = merge(su_kernel.merge_rows_fused, fresh())
+    out_p = merge(su_kernel.merge_rows_fused_torch, fresh(), max_holes=d_k)
     mism = sum(int((x_ != y_).sum()) for x_, y_ in zip(out_k, out_p) if x_ is not None)
     if mism:
         raise AssertionError(f"merge_rows_fused: {mism} elements differ from the plain version")
-    work = out_k[:5]
-    timed = lambda fn, **kw: lambda: fn(*work[:3], row_ops, bdl, bw, width=w,  # noqa: E731
-                                        moves=moves, lo=work[3], hi=work[4],
-                                        src=(m_dst, m_wgt), **kw)
+    del out_k, out_p
     old_st, old_cap, new_st, new_cap, degs, row_ids = host_ops[0].astype(np.int64)
     real = new_st >= 0
     moved = (old_st >= 0) & (new_st != old_st)
-    del out_k, out_p
+    n_real = int(real.sum())
+    lohi_bytes = int((row_ids[real] < m_lo.shape[0]).sum()) * 8 if m_lo is not None else 0
+    # the function's bytes: real rows' row_ops, live prefixes, runs and
+    # counts, their new blocks, the owner map over moved rows' new blocks,
+    # the cleared old blocks, [lo, hi)
+    merge_bytes = (n_real * (24 + k * 12 + 4) + int(degs[real].sum()) * 8
+                   + int(new_cap[real].sum()) * 8 + int(old_cap[moved].sum()) * 4
+                   + (int(new_cap[moved].sum()) * 4 if moves else 0) + lohi_bytes)
+    # what the kernel moves: every row's row_ops, run and count, the owner
+    # map over every real row's new block
+    kernel_bytes = (a * (24 + k * 12 + 4) + int(degs[real].sum()) * 8
+                    + int(new_cap[real].sum()) * (12 if moves else 8)
+                    + int(old_cap[moved].sum()) * 4 + lohi_bytes)
+    say("merge_rows_fused", rows=a, real_rows=n_real, moved_rows=int(moved.sum()),
+        function_bytes=merge_bytes, kernel_bytes=kernel_bytes,
+        kernel_over_function=f"{kernel_bytes / merge_bytes:.4f}")
     rows.append(dict(
         name="merge_rows_fused", source="src/repro_torch/csrc/merge_rows.cu",
         replaces="src/repro/kernels/slot_update/kernel.py:108",
-        shape=f"A={a} W={w} K={k} (rows {int(real.sum())}, moved {int(moved.sum())})",
+        shape=f"A={a} W={w} K={k} (rows {n_real}, moved {int(moved.sum())})",
         max_abs_err=0.0, tolerance="bit-exact (arena, owner map, [lo, hi), counts)",
-        ms=time_ms(timed(su_kernel.merge_rows_fused)),
-        plain_ms=time_ms(timed(su_kernel.merge_rows_fused_torch, max_holes=d_k), reps=5),
-        library_ms=None,
-        # row_ops, live prefix, run, new block (+ owner map), cleared old
-        # block, count, [lo, hi)
-        bytes=(a * 24 + int(degs.sum()) * 8 + a * k * 12 + int(new_cap[real].sum())
-               * (12 if moves else 8) + int(old_cap[moved].sum()) * 4 + a * 4
-               + (int((row_ids[real] < m_lo.shape[0]).sum()) * 8 if m_lo is not None else 0)),
-        ops=a * (w + k),
+        ms=time_fresh_ms(fresh, lambda o: merge(su_kernel.merge_rows_fused, o)),
+        plain_ms=time_fresh_ms(
+            fresh, lambda o: merge(su_kernel.merge_rows_fused_torch, o, max_holes=d_k), reps=5),
+        library_ms=None, bytes=merge_bytes, ops=n_real * (w + k),
     ))
-    del work, merge_case, m_dst, m_wgt, m_rows
+    del merge_case, m_dst, m_wgt, m_rows
 
     got, ref = cb_kernel.count_degrees(src_d, n), cb_kernel.count_degrees_torch(src_d, n)
     mism = int((got != ref).sum())

@@ -4,20 +4,21 @@
 // One width group of a plan: row_ops [6,A] i32 (old_start, old_cap,
 // new_start, new_cap, deg, row_id per row), op runs b_dst/b_del [A,K] i32
 // and b_wgt [A,K] f32, sorted per row with SENTINEL padding.  For each row:
-//   1. read the live prefix src_d/src_w[old_start : old_start + deg];
+//   1. read the live prefix ids/wts[old_start : old_start + deg];
 //   2. merge the run into it: deletes, weight upserts, ranked inserts;
-//   3. write the merged row to dst_d/dst_w[new_start : new_start + count]
-//      and SENTINEL / 0.0 to the rest of the new block (new_cap slots);
+//   3. write the merged row to ids/wts[new_start : new_start + count] and
+//      SENTINEL / 0.0 to the rest of the new block (new_cap slots);
 //   4. where the row moved (new_start != old_start, old_start >= 0),
-//      SENTINEL-fill dst_d's old block; with `moves`, write slot_rows =
-//      row_id over the new block;
+//      SENTINEL-fill ids' old block; with `moves`, write slot_rows = row_id
+//      over the new block;
 //   5. counts[r] = count, and when lo/hi are given and row_id < nv,
 //      lo[row_id] = new_start, hi[row_id] = new_start + count.
-// Pad rows (new_start < 0) write only their count.  In the arena src and
-// dst are the same buffers: the rows of one plan touch disjoint blocks
-// (vacated blocks are freed only after the write-back, core/digraph.py), so
-// no row reads a block that another row writes, and each row is read whole
-// (into registers or shared memory) before any slot of it is written.
+// Pad rows (new_start < 0) write only their count.  The arena is read and
+// written in place: the rows of one plan touch disjoint blocks (vacated
+// blocks are freed only after the write-back, core/digraph.py), so no row
+// reads a block that another row writes, and each row is read whole (into
+// registers, ordered before any write by __syncwarp, or into a stage behind
+// __syncthreads) before any slot of it is written.
 //
 // Replaces src/repro/kernels/slot_update/kernel.py::merge_rows_pallas (body
 // _kernel) and, around it, the padded [A,W] gather and the scatter
@@ -54,10 +55,8 @@ constexpr int kRowsPerBlock = 8;  // warp kernel
 enum OpKind { kNone = 0, kKill = 1, kInsert = 2 };
 
 struct Args {
-  const int* src_d;
-  const float* src_w;
-  int* dst_d;
-  float* dst_w;
+  int* ids;  // the arena, read and written in place
+  float* wts;
   int* slot_rows;  // written only when moves
   const int* row_ops;
   long long a;
@@ -95,8 +94,8 @@ __device__ __forceinline__ void finish_row(const Args& p, const Row& x,
                                            int n_threads) {
   if (x.new_start >= 0) {
     for (int i = max(count, 0) + t; i < x.new_cap; i += n_threads) {
-      p.dst_d[x.new_start + i] = kSentinel;
-      p.dst_w[x.new_start + i] = 0.0f;
+      p.ids[x.new_start + i] = kSentinel;
+      p.wts[x.new_start + i] = 0.0f;
     }
     if (p.moves) {
       for (int i = t; i < x.new_cap; i += n_threads) {
@@ -106,7 +105,7 @@ __device__ __forceinline__ void finish_row(const Args& p, const Row& x,
   }
   if (x.old_start >= 0 && x.new_start != x.old_start) {
     for (int i = t; i < x.old_cap; i += n_threads) {
-      p.dst_d[x.old_start + i] = kSentinel;
+      p.ids[x.old_start + i] = kSentinel;
     }
   }
   if (t == 0) {
@@ -121,8 +120,8 @@ __device__ __forceinline__ void finish_row(const Args& p, const Row& x,
 __device__ __forceinline__ void put(const Args& p, const Row& x, int at,
                                     int v, float wt) {
   if (x.new_start >= 0 && at < x.new_cap) {
-    p.dst_d[x.new_start + at] = v;
-    p.dst_w[x.new_start + at] = wt;
+    p.ids[x.new_start + at] = v;
+    p.wts[x.new_start + at] = wt;
   }
 }
 
@@ -155,9 +154,11 @@ __global__ void merge_rows_warp_kernel(const Args p) {
   float ow = has_op ? bw[lane] : 0.0f;
   const Row x = load_row(p, r);
   const bool live = lane < x.deg;
-  const int d = live ? p.src_d[x.old_start + lane] : kSentinel;
-  const float wt = live ? p.src_w[x.old_start + lane] : 0.0f;
+  const int d = live ? p.ids[x.old_start + lane] : kSentinel;
+  const float wt = live ? p.wts[x.old_start + lane] : 0.0f;
   const unsigned below = (1u << lane) - 1;  // lanes under this one
+  // every lane's reads of the row before any lane's put() into it
+  __syncwarp();
 
   bool killed = false, upsert = false;
   float up_w = 0.0f;
@@ -291,8 +292,8 @@ __global__ void merge_rows_block_kernel(const Args p) {
 
   // 1. stage the row and the run's keys; after this no slot is read
   for (int i = t; i < x.deg; i += n_threads) {
-    sd[i] = p.src_d[x.old_start + i];
-    sw[i] = p.src_w[x.old_start + i];
+    sd[i] = p.ids[x.old_start + i];
+    sw[i] = p.wts[x.old_start + i];
   }
   for (int i = t; i < p.k; i += n_threads) sk[i] = bd[i];
   __syncthreads();
@@ -336,12 +337,10 @@ __global__ void merge_rows_block_kernel(const Args p) {
 
 }  // namespace
 
-// src_d/src_w and dst_d/dst_w may be the same buffers (the in-place arena
-// write-back).  threads: the block kernel's block size (w > 32).  scratch:
-// null when a row's stage (4 * (2w + 3k) bytes) fits in shared memory,
-// else a * that many bytes of device memory.
-extern "C" int repro_merge_rows(const int* src_d, const float* src_w,
-                                int* dst_d, float* dst_w, int* slot_rows,
+// ids/wts: the arena, merged in place.  threads: the block kernel's block size
+// (w > 32).  scratch: null when a row's stage (4 * (2w + 3k) bytes) fits in
+// shared memory, else a * that many bytes of device memory.
+extern "C" int repro_merge_rows(int* ids, float* wts, int* slot_rows,
                                 const int* row_ops, long long a, int w,
                                 const int* b_dst, const int* b_del,
                                 const float* b_wgt, int k, int moves,
@@ -349,7 +348,7 @@ extern "C" int repro_merge_rows(const int* src_d, const float* src_w,
                                 int* scratch, int threads, void* stream) {
   if (a <= 0) return 0;
   if (w <= 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args p{src_d, src_w, dst_d, dst_w, slot_rows, row_ops, a, w,
+  const Args p{ids, wts, slot_rows, row_ops, a, w,
                b_dst, b_del, b_wgt, k, moves, counts, lo, hi, nv, scratch};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w <= 32) {

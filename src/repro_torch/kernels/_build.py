@@ -38,8 +38,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "repro_tile_cumsum": (_P, _P, _L, _P),
     "repro_count_degrees": (_P, _L, _I, _P, _P),
-    "repro_merge_rows": (_P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I,
-                         _P, _P, _P, _I, _P, _I, _P),
+    "repro_merge_rows": (_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                         _P, _I, _P),
     "repro_slot_walk_partials": (_P, _P, _L, _L, _I, _P, _P, _P),
     "repro_bsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_edge_segment_sum": (_P, _P, _L, _I, _I, _I, _P, _P, _P),

@@ -15,7 +15,8 @@ version, ``merge_rows_fused_torch``, only for CPU tensors;
 ``merge_rows_fused.launches`` counts kernel launches.
 
 ``merge_rows`` is the row merge on padded [A, W] rows (the TPU kernel's
-contract): the same kernel reading the rows from the padded buffers.
+contract), on the CPU only: on the card rows merge in place, through
+``merge_rows_fused``.
 
 ``merge_rows_torch`` is the port of ``repro``'s ``_merge_rows_xla``: a
 batched branchless bisect for op membership, rank arithmetic for placement
@@ -98,12 +99,11 @@ def refresh_blocks_torch(lo, hi, row_ops, counts) -> None:
 
 def merge_rows_fused_torch(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
                            width: int, moves: bool = False, max_holes=None,
-                           lo=None, hi=None, src=None):
+                           lo=None, hi=None):
     """Plain version of ``merge_rows_fused``: gather, merge, refresh the
     bounds, write back."""
-    src_d, src_w = (dst, wgt) if src is None else src
-    d_rows, w_rows, counts = gather_merge_torch(src_d, src_w, row_ops, b_dstdel,
-                                                b_wgt, width, max_holes)
+    d_rows, w_rows, counts = gather_merge_torch(dst, wgt, row_ops, b_dstdel, b_wgt,
+                                                width, max_holes)
     if lo is not None:
         refresh_blocks_torch(lo, hi, row_ops, counts)
     write_back_torch(dst, wgt, slot_rows, row_ops, d_rows, w_rows, moves=moves)
@@ -112,7 +112,7 @@ def merge_rows_fused_torch(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
 
 def merge_rows_fused(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
                      width: int, moves: bool = False, max_holes=None,
-                     lo=None, hi=None, src=None):
+                     lo=None, hi=None):
     """Merge one width group's op runs into its arena rows, in place.
 
     ``dst``/``wgt``/``slot_rows`` [cap_e] are the arena (written in place;
@@ -122,19 +122,16 @@ def merge_rows_fused(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
     [A, K] f32 their weights; ``width`` >= every row's capacity.  Pad rows
     carry ``new_starts`` -1.  ``lo``/``hi`` (int32, the walk image's
     bounds) are refreshed in place for rows with ids < ``lo.shape[0]``.
-    ``src`` = (src_d, src_w) reads the rows from other buffers than the
-    arena.  ``max_holes`` bounds the plain version's delete-hole window (the
+    ``max_holes`` bounds the plain version's delete-hole window (the
     kernel needs none).  Returns the merged counts [A] int32.
     """
     if dst.device.type == "cpu":
         return merge_rows_fused_torch(
             dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, width=width, moves=moves,
-            max_holes=max_holes, lo=lo, hi=hi, src=src)
-    src_d, src_w = (dst, wgt) if src is None else src
+            max_holes=max_holes, lo=lo, hi=hi)
     a = row_ops.shape[1] if row_ops.ndim == 2 else -1
     k = b_dstdel.shape[2] if b_dstdel.ndim == 3 else -1
     operands = [(dst, "dst", torch.int32, None), (wgt, "wgt", torch.float32, None),
-                (src_d, "src_d", torch.int32, None), (src_w, "src_w", torch.float32, None),
                 (row_ops, "row_ops", torch.int32, (6, a)),
                 (b_dstdel, "b_dstdel", torch.int32, (2, a, k)),
                 (b_wgt, "b_wgt", torch.float32, (a, k))]
@@ -146,7 +143,7 @@ def merge_rows_fused(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
         _build.require(t, name, dtype, 1 if shape is None else len(shape))
         if shape is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not 0 < width < 2**31 or max(dst.shape[0], src_d.shape[0]) >= 2**31:
+    if not 0 < width < 2**31 or dst.shape[0] >= 2**31:
         raise ValueError("width and the arena must fit int32 offsets")
     counts = torch.empty(a, dtype=torch.int32, device=dst.device)
     if a == 0:
@@ -159,8 +156,7 @@ def merge_rows_fused(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
     lib = _build.library()
     _build.check(
         lib.repro_merge_rows(
-            src_d.data_ptr(), src_w.data_ptr(), dst.data_ptr(), wgt.data_ptr(),
-            ptr(slot_rows) if moves else 0, row_ops.data_ptr(), a, width,
+            dst.data_ptr(), wgt.data_ptr(), ptr(slot_rows) if moves else 0, row_ops.data_ptr(), a, width,
             b_dstdel[0].data_ptr(), b_dstdel[1].data_ptr(), b_wgt.data_ptr(), k,
             int(bool(moves)), counts.data_ptr(), ptr(lo), ptr(hi),
             0 if lo is None else lo.shape[0], ptr(scratch), _threads(width, k),
@@ -177,24 +173,12 @@ merge_rows_fused.launches = 0
 
 def merge_rows(d_rows, w_rows, degs, b_dst, b_wgt, b_del):
     """Row merge on padded rows: [A, W] rows x [A, K] runs -> (out_d, out_w,
-    counts).  On CUDA tensors, ``merge_rows_fused`` reading the padded rows
-    and writing fresh ones."""
-    if d_rows.device.type == "cpu":
-        return merge_rows_torch(d_rows, w_rows, degs, b_dst, b_wgt, b_del)
-    a, w = d_rows.shape
-    if a * w >= 2**31:
-        raise ValueError(f"[{a}, {w}] rows exceed int32 offsets")
-    starts = torch.arange(a, dtype=torch.int32, device=d_rows.device) * w
-    caps = torch.full_like(starts, w)
-    row_ops = torch.stack([starts, caps, starts, caps, degs.to(torch.int32),
-                           torch.full_like(starts, -1)])
-    out_d = torch.empty_like(d_rows)
-    out_w = torch.empty_like(w_rows)
-    counts = merge_rows_fused(
-        out_d.view(-1), out_w.view(-1), None, row_ops,
-        torch.stack([b_dst, b_del]), b_wgt.contiguous(), width=w,
-        src=(d_rows.contiguous().view(-1), w_rows.contiguous().view(-1)))
-    return out_d, out_w, counts
+    counts), on CPU tensors only (``merge_rows_torch``); on the card rows
+    merge in place, through ``merge_rows_fused``."""
+    if d_rows.device.type != "cpu":
+        raise ValueError("merge_rows on padded rows runs on the CPU only: on the card "
+                         "rows merge in place, through merge_rows_fused")
+    return merge_rows_torch(d_rows, w_rows, degs, b_dst, b_wgt, b_del)
 
 
 def _flat_set(size: int, idx, vals, fill, dtype, device):

@@ -41,6 +41,12 @@ REBUILD_MAX_CAP = 1 << 21
 #: floor is one warp, so the smallest classes share one merge launch.
 HOST_FLOOR = 8
 GPU_FLOOR = 32
+#: The CUDA path's pinned host staging buffer, reused by every call and
+#: grown (at least doubled) only when a plan's operands outgrow it, so a
+#: stream of batches pays the pinned allocation once or twice, not a call.
+#: A call takes it out and puts it back after the counts copy, when its own
+#: copy to the card has finished.
+_STAGE: dict = {}
 
 
 def width_floor(device: torch.device) -> int:
@@ -50,10 +56,12 @@ def width_floor(device: torch.device) -> int:
 
 def merge_rows(d_rows, w_rows, degs, b_dst, b_wgt, b_del, *,
                backend: str = "auto", max_holes: int | None = None):
-    """Backend-dispatched row merge: ``cuda`` kernel or ``torch`` version.
+    """Backend-dispatched row merge on padded [A, W] rows (the TPU
+    kernel's contract): ``torch`` version, or ``cuda``, whose wrapper runs
+    on CPU tensors only (the card merges in place, through ``fused_apply``).
 
     ``max_holes`` bounds the delete-hole compaction window of the plain
-    version (the kernel needs no bound); None means the full run width.
+    version; None means the full run width.
     """
     if util.resolve_backend(backend, d_rows.device) == "cuda":
         return _kernel.merge_rows(d_rows, w_rows, degs, b_dst, b_wgt, b_del)
@@ -147,14 +155,17 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
         extra = (lo, hi)
     else:
         lo = hi = extra = None
+    stage = None
     if backend == "cuda":
-        counts_all = _apply_cuda(dst, wgt, slot_rows, groups, lo, hi)
+        counts_all, stage = _apply_cuda(dst, wgt, slot_rows, groups, lo, hi)
     else:
         counts_all = _apply_torch(dst, wgt, slot_rows, groups, lo, hi, scatter=scatter,
                                   slot_map=slot_map, owner_patch=owner_patch)
 
     # one counts copy to the host, split back per group
     counts_cat = util.host(torch.cat(counts_all)) if counts_all else np.zeros(0, np.int32)
+    if stage is not None:  # the operands' copy went before the counts'
+        _STAGE["buf"] = stage
     counts_list, at = [], 0
     for g in groups:
         counts_list.append(counts_cat[at:at + g[1]])
@@ -163,25 +174,30 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
 
 
 def _apply_cuda(dst, wgt, slot_rows, groups, lo, hi):
-    """One ``merge_rows_fused`` launch per group, in place.
+    """One ``merge_rows_fused`` launch per group, in place -> (counts per
+    group, the staging buffer to put back once the counts are on the host).
 
     The groups' host operands (mostly the runs' SENTINEL padding: ~100 MB
-    for a 1e-2·|E| batch at scale 21) are packed into one pinned buffer by
-    PyTorch's multi-threaded copy and go to the card in one asynchronous
-    copy, so nothing here waits for the device."""
+    for a 1e-2·|E| batch at scale 21) are packed into the pinned staging
+    buffer by PyTorch's multi-threaded copy and go to the card in one
+    asynchronous copy, so nothing here waits for the device."""
     host = []
     for *_head, (row_ops, bdl, bw) in groups:
         host += [np.ascontiguousarray(row_ops, np.int32).reshape(-1),
                  np.ascontiguousarray(bdl, np.int32).reshape(-1),
                  np.ascontiguousarray(bw, np.float32).view(np.int32).reshape(-1)]
     if not host:
-        return []
-    pinned = torch.empty(sum(x.size for x in host), dtype=torch.int32, pin_memory=True)
+        return [], None
+    total = sum(x.size for x in host)
+    stage = _STAGE.pop("buf", None)
+    if stage is None or stage.numel() < total:
+        grown = 0 if stage is None else 2 * stage.numel()
+        stage = torch.empty(max(total, grown), dtype=torch.int32, pin_memory=True)
     at = 0
     for x in host:
-        pinned[at:at + x.size].copy_(torch.from_numpy(x))
+        stage[at:at + x.size].copy_(torch.from_numpy(x))
         at += x.size
-    flat = pinned.to(dst.device, non_blocking=True)
+    flat = stage[:total].to(dst.device, non_blocking=True)
     counts_all, at = [], 0
     for width, a_pad, k, _d_k, moves, _ops in groups:
         row_ops = flat[at:at + 6 * a_pad].view(6, a_pad)
@@ -192,7 +208,7 @@ def _apply_cuda(dst, wgt, slot_rows, groups, lo, hi):
         at += a_pad * k
         counts_all.append(_kernel.merge_rows_fused(
             dst, wgt, slot_rows, row_ops, bdl, bw, width=width, moves=moves, lo=lo, hi=hi))
-    return counts_all
+    return counts_all, stage
 
 
 def _apply_torch(dst, wgt, slot_rows, groups, lo, hi, *, scatter: bool,

@@ -67,49 +67,6 @@ def test_count_degrees_bit_exact(cuda, m, n):
     assert torch.equal(got, cb_kernel.count_degrees_torch(s, n))
 
 
-def _merge_case(rng, a, w, k, full=False):
-    """Sorted rows with a live prefix and sorted op runs (one op per key)."""
-    d = np.full((a, w), SENT, np.int32)
-    wt = np.zeros((a, w), np.float32)
-    degs = (np.full(a, w) if full else rng.integers(0, w // 2 + 1, a)).astype(np.int32)
-    bd = np.full((a, k), SENT, np.int32)
-    bw = np.zeros((a, k), np.float32)
-    bl = np.zeros((a, k), np.int32)
-    for i in range(a):
-        vals = np.sort(rng.choice(4 * w + 64, degs[i], replace=False))
-        d[i, : degs[i]] = vals
-        wt[i, : degs[i]] = rng.random(degs[i])
-        pool = np.unique(np.concatenate([vals, rng.integers(0, 4 * w + 64, k)]))
-        ops = np.sort(rng.choice(pool, min(int(rng.integers(0, k + 1)), pool.size),
-                                 replace=False))
-        bd[i, : ops.size] = ops
-        bw[i, : ops.size] = rng.random(ops.size)
-        bl[i, : ops.size] = rng.integers(0, 2, ops.size)
-        if full:  # full rows may only delete or upsert
-            bl[i, : ops.size] |= ~np.isin(ops, vals)
-    return d, wt, degs, bd, bw, bl
-
-
-@pytest.mark.parametrize(
-    "a,w,k,full",
-    [(16, 8, 4, False), (64, 64, 8, False), (8, 1024, 64, False),
-     (3, 32768, 512, False), (4, 512, 1024, False), (16, 32, 16, True)],
-)
-def test_merge_rows_bit_exact(cuda, a, w, k, full):
-    case = _merge_case(np.random.default_rng(a * w + k), a, w, k, full)
-    args = [torch.from_numpy(x).to(cuda) for x in case]
-    before = KERNELS["merge_rows_fused"].launches
-    od, ow, cnt = su_kernel.merge_rows(*args)
-    assert KERNELS["merge_rows_fused"].launches == before + 1
-    pd, pw, pc = su_kernel.merge_rows_torch(*args)
-    assert torch.equal(od, pd) and torch.equal(ow, pw) and torch.equal(cnt, pc)
-    if w <= 1024:
-        rd, rw, rc = merge_rows_reference(*case)
-        np.testing.assert_array_equal(od.cpu().numpy(), rd)
-        np.testing.assert_array_equal(ow.cpu().numpy(), rw)
-        np.testing.assert_array_equal(cnt.cpu().numpy(), rc)
-
-
 def _fused_case(rng, a, w, k, *, grow, pad, full):
     """One width group of a plan on a small arena: rows in place or grown
     into a new block, pad rows, sorted op runs whose inserts fit the new
@@ -159,12 +116,15 @@ def _fused_case(rng, a, w, k, *, grow, pad, full):
     [(40, 32, 8, False, 3, False), (40, 32, 8, True, 3, False), (64, 32, 64, True, 0, False),
      (16, 32, 16, False, 0, True), (7, 32, 4, True, 7, False), (24, 64, 8, True, 5, False),
      (8, 1024, 64, True, 2, False), (4, 512, 1024, False, 0, False),
-     (3, 32768, 512, True, 1, False), (2, 16384, 1024, False, 0, True)],
+     (3, 32768, 512, True, 1, False), (2, 16384, 1024, False, 0, True),
+     (16, 8, 4, False, 0, False), (64, 64, 8, False, 0, False), (8, 1024, 64, False, 0, False),
+     (3, 32768, 512, False, 0, False), (16, 32, 16, True, 0, True)],
 )
 def test_merge_rows_fused_matches_plain(cuda, a, w, k, grow, pad, full):
-    """In place and grown rows, pad rows, full rows, runs wider than a warp
-    and hub-wide rows (staged in device memory): the arena, the owner map,
-    the [lo, hi) refresh and the counts bit for bit."""
+    """In place and grown rows, pad rows, full rows, rows narrower than a
+    warp, runs wider than a warp and hub-wide rows (staged in device
+    memory): the arena, the owner map, the [lo, hi) refresh and the counts
+    bit for bit."""
     rng = np.random.default_rng(a * w + k + grow)
     case, blocks = _fused_case(rng, a, w, k, grow=grow, pad=pad, full=full)
     moves = grow
@@ -182,6 +142,21 @@ def test_merge_rows_fused_matches_plain(cuda, a, w, k, grow, pad, full):
     for name, g, e_ in zip(("dst", "wgt", "slot_rows", "lo", "hi", "counts"), got, exp):
         assert torch.equal(g, e_), name
     assert int(got[5][a - pad:].abs().sum()) == 0  # pad rows merge nothing
+    if w <= 1024:  # the merged rows (new blocks hold w slots) against numpy
+        dst0, wgt0, _, row_ops, bdl, bw = case
+        real = row_ops[2] >= 0
+        old_s, _, new_s, _, degs, _ = row_ops[:, real].astype(np.int64)
+        lane = np.arange(w)
+        live = lane < degs[:, None]
+        take = old_s[:, None] + np.minimum(lane, np.maximum(degs[:, None] - 1, 0))
+        rd, rw, rc = merge_rows_reference(
+            np.where(live, dst0[take], SENT).astype(np.int32),
+            np.where(live, wgt0[take], 0).astype(np.float32), degs.astype(np.int32),
+            bdl[0][real], bw[real], bdl[1][real])
+        at = new_s[:, None] + lane
+        np.testing.assert_array_equal(got[0].cpu().numpy()[at], rd)
+        np.testing.assert_array_equal(got[1].cpu().numpy()[at], rw)
+        np.testing.assert_array_equal(got[5].cpu().numpy()[real], rc)
 
 
 def test_merge_rows_fused_rejects_bad_operands(cuda):
@@ -251,6 +226,33 @@ def test_fused_apply_cuda_syncs_only_for_counts(cuda, monkeypatch):
     g.apply(updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 500),
                                 deletes=edgebatch.random_deletions(rng, g.to_csr(), 500)))
     assert len(syncs) == 1 and len(syncs[0]) == 1, syncs
+
+
+def test_fused_apply_cuda_reuses_its_staging_buffer(cuda):
+    """Batches whose operands fit the pinned staging buffer reuse it; one
+    that outgrows it gets a buffer at least twice as large, and state stays
+    equal to the plain backend's throughout."""
+    from repro_torch.kernels.slot_update import ops as su_ops
+
+    c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=6, device=cuda)
+    g = DiGraph.from_csr(c, device=cuda)
+    p = g.clone()
+    rng = np.random.default_rng(6)
+    su_ops._STAGE.clear()
+    seen = []
+    for n_ops in (600, 200, 6000):
+        plan = updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, n_ops),
+                                   deletes=edgebatch.random_deletions(rng, g.to_csr(), n_ops))
+        g.apply(plan, backend="cuda")
+        p.apply(plan, backend="torch")
+        buf = su_ops._STAGE["buf"]
+        assert buf.is_pinned()
+        seen.append((buf.data_ptr(), buf.numel()))
+    assert seen[1] == seen[0]  # the smaller batch reused the buffer
+    assert seen[2][1] >= 2 * seen[1][1]  # the larger one grew it
+    tg, tp = g.state_tree(), p.state_tree()
+    for key in tg:
+        np.testing.assert_array_equal(tg[key], tp[key], err_msg=key)
 
 
 def test_digraph_cuda_matches_plain_backend(cuda):
@@ -436,6 +438,32 @@ def test_edge_segment_sum_cuda_matches_plain(cuda, e, d, kind):
     assert bool(((got - ref).abs() <= bound).all())
     assert bool((got[cnt[:, 0] == 0] == 0).all())  # rows without edges
     assert torch.equal(seg_ops.edge_segment_sum(rows, vals, num_segments=n), got)
+
+
+@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("place", ["middle", "aligned", "end"])
+@pytest.mark.parametrize("tiles", [2, 3, 65, 129, 130, 157, 257])
+def test_edge_segment_sum_cuda_hub_is_exact(cuda, tiles, place, d):
+    """A hub row spanning ``tiles`` tiles, beginning inside a tile and
+    ending inside a later one (middle), beginning and ending on tile
+    boundaries (aligned), or running into the ragged last tile (end), so
+    each exit of the seam fold's gallop and bisect is taken.  The values
+    are small integers, so every partial sum is exact in float32 and one
+    seam dropped or added twice shows: the op equals the float64 sum."""
+    rng = np.random.default_rng(tiles * 7 + len(place) + d)
+    lead, tail = {"middle": (77, 50), "aligned": (0, 0), "end": (5, 20)}[place]
+    hub = tiles * 128 - lead - tail  # edges of the hub row
+    before = np.sort(rng.integers(0, 40, 3 * 128 + lead))  # rows 0..39
+    after = np.sort(rng.integers(42, 90, 0 if place == "end" else 300))
+    rows_np = np.concatenate([before, np.full(hub, 41), after]).astype(np.int32)
+    n = 90
+    rows = torch.from_numpy(rows_np).to(cuda)
+    vals = torch.from_numpy(rng.integers(-8, 9, (rows_np.shape[0], d)).astype(np.float32)).to(cuda)
+    got = seg_ops.edge_segment_sum(rows, vals, num_segments=n)
+    exp = torch.zeros((n, d), dtype=torch.float64, device=cuda).index_add_(
+        0, rows.long(), vals.double())
+    assert torch.equal(got, exp.float())
+    assert float(exp[41].abs().max()) < 2.0**24  # every partial sum exact
 
 
 def test_edge_segment_sum_cuda_is_deterministic(cuda):
