@@ -8,8 +8,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (into
 graph at scale 21 (2,097,152 vertices, ~67M directed edges, the size of
 SNAP's soc-LiveJournal1):
 
-  load    COO -> CSR on the card (device sort + the count_degrees kernel),
-          bit-identical to the host engine; CSR -> DiGraph arena
+  load    COO -> CSR on the card (device sort + the degree_offsets kernel
+          on the sorted sources), bit-identical to the host engine, timed
+          after a warm-up (the cold call beside it) and split into the
+          host conversions, the host->device copies and the device build;
+          CSR -> DiGraph arena
+  load_file
+          the raw CSR written as a 2.15 GB MTX file (write_mtx, untimed,
+          under build/, deleted after the phase), then load_mtx and
+          load_digraph from it (the compiled row parser asserted, each
+          timed after a warm-up and split into the host parse, the copies
+          and the device build); the loaded CSR bit-identical to the raw
+          one, the loaded arena to DiGraph.from_csr of it
   clone   deep copy, equal buffers
   update  deletion (1e-3 |E|), insertion (1e-3 |E|) and mixed (1e-2 |E|)
           batches through the merge_rows_fused kernel (gather, merge and
@@ -111,6 +121,10 @@ PARTIALS_RTOL = 2 * 127 * 2.0**-24
 #: bsr_spmm: each output sums the few non-zero products of a row in
 #: another order (non-negative terms)
 SPMM_RTOL = 1e-5
+#: kernels that no main path launches: count_degrees is the histogram of
+#: unsorted sources, and the device build reads its sorted sources with
+#: degree_offsets instead; it is held against its plain version all the same
+OFF_PATH = ("count_degrees",)
 #: the segment sum's widths: gcn-cora's and schnet's d_hidden
 SEG_WIDTHS = (16, 64)
 #: the width whose edge_segment_runs launch fills the kernels line
@@ -308,6 +322,23 @@ def count_calls(module, names):
 
 
 @contextlib.contextmanager
+def load_split(csr):
+    """Split the ``csr.from_coo`` calls made while active: its host time,
+    the host conversions (host clock), the host->device copies and the
+    device build (CUDA events), summed over the calls, in a dict filled on
+    exit (after the caller's device synchronise)."""
+    parts = {}
+    with timed_calls(csr, "from_coo") as fc, timed_calls(csr, "_coo_int32") as cv, \
+            timed_calls(csr, "_to_device") as cp, timed_calls(csr, "_build_device") as bd:
+        yield parts
+    torch.cuda.synchronize()
+    parts["from_coo_host_ms"] = sum(h_ for _, _, h_ in fc) * 1e3
+    parts["host_conversions_ms"] = sum(h_ for _, _, h_ in cv) * 1e3
+    parts["copies_event_ms"] = sum(a_.elapsed_time(b_) for a_, b_, _ in cp)
+    parts["device_build_event_ms"] = sum(a_.elapsed_time(b_) for a_, b_, _ in bd)
+
+
+@contextlib.contextmanager
 def counted(kernels: dict, launches: dict):
     """Count the kernel launches of one main-path call: every wrapper's
     count is set to 0 on entry and added to ``launches`` on exit."""
@@ -347,7 +378,7 @@ def main() -> None:
     from repro_torch.configs import base as cfg_base
     from repro_torch.configs import h2o_danube_1_8b, two_tower_retrieval
     from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
-    from repro_torch.io import synthetic
+    from repro_torch.io import _cparse, mtx, synthetic
     from repro_torch.kernels import KERNELS, _build
     from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
@@ -397,12 +428,19 @@ def main() -> None:
     # (host engine, plain twin, warm-up, normalised walks) launch outside it
     launches = dict.fromkeys(KERNELS, 0)
     times = {}
+    phase_s = {}
 
     # 3. load (paper task 1) --------------------------------------------
+    # warm-up: the process's first device build, timed as the cold call
     t0 = sync_now()
-    with counted(KERNELS, launches):
+    csr.from_coo(src, dst, wgt, n=n, dedup=False, engine="cuda", device=dev)
+    first_ms = sync_s(t0) * 1e3
+    t0 = sync_now()
+    with counted(KERNELS, launches), load_split(csr) as split_coo:
         raw = csr.from_coo(src, dst, wgt, n=n, dedup=False, engine="cuda", device=dev)
     times["load_coo_ms"] = sync_s(t0) * 1e3
+    expect_launches("degree_offsets", 1, "load")
+    expect_launches("count_degrees", 0, "load")
     host = csr.from_coo(src, dst, wgt, n=n, dedup=False, engine="host", device=dev)
     for f in ("offsets", "dst", "wgt"):
         if not torch.equal(getattr(raw, f), getattr(host, f)):
@@ -413,8 +451,66 @@ def main() -> None:
         g = DiGraph.from_csr(c, device=dev)
     times["load_arena_ms"] = sync_s(t0) * 1e3
     say("load", m_raw=raw.m, cap_e=g.cap_e, bump=g.layout.bump,
-        coo_to_csr_ms=f"{times['load_coo_ms']:.1f}",
+        coo_to_csr_ms=f"{times['load_coo_ms']:.1f}", first_call_ms=f"{first_ms:.1f}",
+        **{k: f"{v_:.4f}" for k, v_ in split_coo.items() if k != "from_coo_host_ms"},
         csr_to_arena_ms=f"{times['load_arena_ms']:.1f}", host_engine="bit-identical")
+
+    # 3b. load_file (paper task 1 from a file) ----------------------------
+    p0 = time.perf_counter()
+    if not _cparse.available():
+        raise AssertionError("load_file: the compiled row parser did not build")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"chip_smoke_{os.getpid()}.mtx")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        mtx.write_mtx(path, raw)
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        file_split = {}
+        for name in ("load_mtx", "load_digraph"):
+            t0 = sync_now()
+            getattr(mtx, name)(path, device=dev)  # warm-up: pools, the parser's scratch
+            file_split[f"{name}_first_call_ms"] = sync_s(t0) * 1e3
+            calls = _cparse.parse_fixed_rows.calls
+            t0 = sync_now()
+            with counted(KERNELS, launches), load_split(csr) as parts, \
+                    timed_calls(mtx, "load_mtx") as lm:
+                out = getattr(mtx, name)(path, device=dev)
+            times[f"{name}_ms"] = sync_s(t0) * 1e3
+            expect_launches("degree_offsets", 1, f"load_file/{name}")
+            parts["parse_host_ms"] = lm[0][2] * 1e3 - parts.pop("from_coo_host_ms")
+            if name == "load_digraph":
+                parts["arena_host_ms"] = times[f"{name}_ms"] - lm[0][2] * 1e3
+            file_split.update({f"{name}_{k}": v_ for k, v_ in parts.items()})
+            file_split[f"{name}_parser_calls"] = _cparse.parse_fixed_rows.calls - calls
+            if file_split[f"{name}_parser_calls"] == 0:
+                raise AssertionError(f"load_file: {name} did not parse in the compiled parser")
+            if name == "load_mtx":
+                for f in ("offsets", "dst", "wgt"):
+                    if not torch.equal(getattr(out, f).view(torch.int32),
+                                       getattr(raw, f).view(torch.int32)):
+                        raise AssertionError(f"load_file: load_mtx {f} differs from the raw CSR")
+                direct = DiGraph.from_csr(out, device=dev)
+            else:
+                for f in ("dst", "wgt", "slot_rows"):
+                    if not torch.equal(getattr(out, f).view(torch.int32),
+                                       getattr(direct, f).view(torch.int32)):
+                        raise AssertionError(f"load_file: load_digraph {f} differs")
+                for f in ("starts", "capacities", "degrees"):
+                    if not np.array_equal(getattr(out, f), getattr(direct, f)):
+                        raise AssertionError(f"load_file: load_digraph {f} differs")
+            del out
+        del direct
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    phase_s["load_file_s"] = time.perf_counter() - p0
+    say("load_file", bytes=size, lines=raw.m, write_s=f"{write_s:.1f}",
+        load_mtx_ms=f"{times['load_mtx_ms']:.1f}",
+        load_digraph_ms=f"{times['load_digraph_ms']:.1f}",
+        **{k: (v_ if isinstance(v_, int) else f"{v_:.4f}") for k, v_ in file_split.items()},
+        csr="bit-identical to the raw CSR", arena="equal to DiGraph.from_csr of it")
     del raw
 
     # 4. clone (paper task 2) -------------------------------------------
@@ -515,7 +611,6 @@ def main() -> None:
         normalized_max_rel_diff_nonzero=f"{rel:.3e}")
 
     # 7. walk_slotted (paper task 4, interval-less rank tiles) -------------
-    phase_s = {}
     p0 = time.perf_counter()
     ehi = img.edges_hi()
     traversal.reverse_walk_slotted(g.dst, g.slot_rows, 1, nv, edges_hi=ehi)  # warm-up
@@ -1193,7 +1288,7 @@ def main() -> None:
     phase_s["transformer_s"] = time.perf_counter() - p0
 
     say("main_path", **{f"{k}_launches": v_ for k, v_ in launches.items()})
-    missing = [k for k, v_ in launches.items() if v_ == 0]
+    missing = [k for k, v_ in launches.items() if v_ == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
 
@@ -1325,10 +1420,34 @@ def main() -> None:
     ))
     del merge_case, m_dst, m_wgt, m_rows
 
+    # the load path's sorted sources (sorting ids is unique, so these are
+    # the build's src_s), against the plain version and the histogram
+    src_s = torch.sort(src_d).values
+    off_k, off_p = cb_kernel.degree_offsets(src_s, n), cb_kernel.degree_offsets_torch(src_s, n)
+    mism = int((off_k != off_p).sum())
+    if mism:
+        raise AssertionError(f"degree_offsets: {mism} offsets differ from the plain version")
     got, ref = cb_kernel.count_degrees(src_d, n), cb_kernel.count_degrees_torch(src_d, n)
     mism = int((got != ref).sum())
     if mism:
         raise AssertionError(f"count_degrees: {mism} vertices differ from the plain version")
+    if not torch.equal(off_k[1:] - off_k[:-1], ref):
+        raise AssertionError("degree_offsets: the offsets' differences are not the histogram")
+    if not torch.equal(cb_kernel.degree_offsets(src_s, n), off_k):
+        raise AssertionError("degree_offsets: a second call gave other bits")
+    del off_k, off_p
+    rows.append(dict(
+        name="degree_offsets", source="src/repro_torch/csrc/count_degrees.cu",
+        replaces="src/repro/kernels/csr_build/kernel.py:47",
+        shape=f"M={src_s.shape[0]} n={n} sorted", max_abs_err=0.0,
+        tolerance="bit-exact (and its differences equal the histogram)",
+        ms=time_ms(lambda: cb_kernel.degree_offsets(src_s, n)),
+        plain_ms=time_ms(lambda: cb_kernel.degree_offsets_torch(src_s, n), reps=5),
+        library_ms=time_ms(lambda: torch.searchsorted(
+            src_s, torch.arange(n + 1, dtype=torch.int32, device=dev), out_int32=True), reps=5),
+        bytes=src_s.numel() * 4 + (n + 1) * 4, ops=src_s.numel(),
+    ))
+    del src_s
     rows.append(dict(
         name="count_degrees", source="src/repro_torch/csrc/count_degrees.cu",
         replaces="src/repro/kernels/csr_build/kernel.py:47",

@@ -77,11 +77,14 @@ def from_coo(
 
     ``engine`` selects the ``kernels/csr_build`` backend: ``host``
     (packed-key radix argsort in numpy), ``cuda`` (device sort + the
-    ``count_degrees`` CUDA kernel) or ``torch`` (device sort + the plain
-    histogram); ``auto`` picks ``cuda`` for a CUDA device and ``host``
+    ``degree_offsets`` CUDA kernel) or ``torch`` (device sort + the plain
+    offsets); ``auto`` picks ``cuda`` for a CUDA device and ``host``
     otherwise.  The device engines build sorted, non-deduplicated CSRs
     (``sort and not dedup``); every other request takes the host engine,
-    as in ``repro``.
+    as in ``repro``.  ``presorted=True`` says the edges are already in
+    (src, dst) order (an MTX file in CSR order): every engine then skips
+    its sort; ``None`` means unknown (the host engine checks, the device
+    engines sort).
     """
     from ..kernels.csr_build import ops as _build_ops
 
@@ -97,7 +100,8 @@ def from_coo(
         raise ValueError(f"unknown csr_build engine: {engine!r}")
 
     if engine != "host" and sort and not dedup:
-        return _from_coo_device(src, dst_a, w, n=int(n), engine=engine, device=dev)
+        return _from_coo_device(src, dst_a, w, n=int(n), engine=engine, device=dev,
+                                presorted=bool(presorted))
 
     # shifted-offset fill: a stable counting sort realizes the same
     # placement the paper achieves with atomic offset increments.  Inputs
@@ -159,24 +163,42 @@ def from_coo(
     )
 
 
-def _from_coo_device(src, dst, wgt, *, n: int, engine: str, device) -> CSR:
-    """Device counting-sort build (sort + degree histogram + cumsum)."""
+def _from_coo_device(src, dst, wgt, *, n: int, engine: str, device,
+                     presorted: bool = False) -> CSR:
+    """Device counting-sort build: the host conversions, the host→device
+    copies, then the build on the device (sort, offsets, range check)."""
+    s, d, w = _coo_int32(src, dst, wgt)
+    s, d, w = _to_device(s, d, w, device=device)
+    return _build_device(s, d, w, n=n, engine=engine, presorted=presorted)
+
+
+def _coo_int32(src, dst, wgt):
+    """Host COO -> the device build's types: int32 ids, f32 weights."""
+    return (
+        src.astype(np.int32),
+        dst.astype(np.int32),
+        wgt.astype(np.float32, copy=False) if wgt is not None else None,
+    )
+
+
+def _to_device(*arrays, device):
+    """Host arrays -> tensors on ``device`` (None stays None)."""
+    return tuple(None if a is None else torch.from_numpy(a).to(device) for a in arrays)
+
+
+def _build_device(src, dst, wgt, *, n: int, engine: str, presorted: bool) -> CSR:
+    """The build on the tensors' device; ``wgt`` None builds unit weights
+    for the sort and leaves the CSR unweighted."""
     from ..kernels.csr_build import ops as _build_ops
 
     m = int(src.shape[0])
-    s = torch.from_numpy(src.astype(np.int32)).to(device)
-    d = torch.from_numpy(dst.astype(np.int32)).to(device)
-    w = (
-        torch.from_numpy(wgt.astype(np.float32)).to(device)
-        if wgt is not None
-        else torch.ones(m, dtype=torch.float32, device=device)
-    )
+    w = wgt if wgt is not None else torch.ones(m, dtype=torch.float32, device=src.device)
     offsets, _, dst_s, wgt_s = _build_ops.coo_to_csr_device(
-        s, d, w, n=n, engine=engine
+        src, dst, w, n=n, engine=engine, presorted=presorted
     )
-    # same loud failure as the host engine: ids outside [0, n) fall out of
-    # the degree histogram — a 2-element readback guards against silently
-    # orphaned edges
+    # same loud failure as the host engine: sorted ids below 0 move
+    # offsets[0] off 0 and ids >= n move offsets[n] off m — a 2-element
+    # readback guards against silently orphaned edges
     ends = util.host(offsets[[0, n]])
     if int(ends[0]) != 0 or int(ends[1]) != m:
         raise ValueError("from_coo: source id out of range [0, n)")

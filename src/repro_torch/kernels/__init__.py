@@ -4,7 +4,7 @@
 attribute counts the times it launched its kernel.
 """
 from .bsr_spmm.kernel import bsr_spmm
-from .csr_build.kernel import count_degrees
+from .csr_build.kernel import count_degrees, degree_offsets
 from .edge_segment_sum.kernel import edge_segment_runs
 from .embedding_bag.kernel import embedding_bag
 from .flash_attention.kernel import flash_attention
@@ -14,6 +14,7 @@ from .slot_walk.kernel import slot_walk_partials, tile_cumsum
 KERNELS = {
     "tile_cumsum": tile_cumsum,
     "merge_rows_fused": merge_rows_fused,
+    "degree_offsets": degree_offsets,
     "count_degrees": count_degrees,
     "slot_walk_partials": slot_walk_partials,
     "bsr_spmm": bsr_spmm,

@@ -8,11 +8,12 @@ fill) as a counting-sort build with three engines:
           bincount, offsets from one cumsum, and the sorted order IS the
           shifted-offset fill.  Inputs already in (src, dst) order skip
           the sort.
-  cuda    the device build: a stable ``torch.sort`` on the packed key,
-          the degree histogram from the hand-written ``count_degrees``
-          CUDA kernel (``kernel.py``), and a cumsum.  The counterpart of
-          ``repro``'s ``pallas`` engine.
-  torch   the same device build with the plain PyTorch histogram (the
+  cuda    the device build: a stable ``torch.sort`` on the packed key
+          (skipped for inputs already in (src, dst) order), then the CSR
+          offsets read off the sorted sources by the hand-written
+          ``degree_offsets`` CUDA kernel (``kernel.py``).  The
+          counterpart of ``repro``'s ``pallas`` engine.
+  torch   the same device build with the plain PyTorch offsets (the
           counterpart of ``repro``'s ``xla`` engine; runs on any device).
 
 ``arena_image`` builds the DiGraph slotted-arena payload (dst/wgt/
@@ -87,25 +88,44 @@ def sort_coo_host(src: np.ndarray, dst: np.ndarray, *values: np.ndarray):
 
 
 def sort_coo_device(src: torch.Tensor, dst: torch.Tensor, *values: torch.Tensor):
-    """Stable (src, dst) order on the tensors' device: one packed-key sort."""
+    """Stable (src, dst) order on the tensors' device: one packed-key sort.
+
+    The sorted int32 ids are the sorted key's two words (little-endian:
+    the low word is dst, the high word src), so only ``values`` are
+    gathered.
+    """
     key = (src.to(torch.int64) << 32) | (dst.to(torch.int64) & 0xFFFFFFFF)
-    order = torch.argsort(key, stable=True)
+    key_s, order = torch.sort(key, stable=True)
     del key
-    return (src[order], dst[order], *(v[order] for v in values))
+    words = key_s.view(torch.int32)
+    return (words[1::2].contiguous(), words[0::2].contiguous(), *(v[order] for v in values))
 
 
-def coo_to_csr_device(src, dst, wgt, *, n: int, engine: str):
+def degree_offsets(src_s, n: int, *, engine: str = "torch"):
+    """CSR offsets [n + 1] int32 of sorted int32 sources on their device:
+    the ``degree_offsets`` kernel (``cuda``) or its plain version
+    (``torch``).  Out-of-range sources move ``offsets[0]`` off 0 or
+    ``offsets[n]`` off M."""
+    if engine not in ("cuda", "torch"):
+        raise ValueError(f"degree_offsets: engine must be 'cuda' or 'torch', got {engine!r}")
+    if util.resolve_backend(engine, src_s.device) == "cuda":
+        return _kernel.degree_offsets(src_s, n)
+    return _kernel.degree_offsets_torch(src_s, n)
+
+
+def coo_to_csr_device(src, dst, wgt, *, n: int, engine: str, presorted: bool = False):
     """Device counting-sort build -> (offsets, src_s, dst_s, wgt_s).
 
-    ``src``/``dst`` are int32 and ``wgt`` f32 tensors on one device; the
-    histogram runs on the raw (unsorted) sources, where the kernel's
-    atomics rarely collide.  Offsets are int32 [n + 1].
+    ``src``/``dst`` are int32 and ``wgt`` f32 tensors on one device.  The
+    stable sort brings the edges into (src, dst) order (``presorted``
+    inputs skip it); the offsets are then read off the sorted sources'
+    run boundaries.  Offsets are int32 [n + 1].
     """
-    src_s, dst_s, wgt_s = sort_coo_device(src, dst, wgt)
-    deg = count_degrees(src, n, engine=engine)
-    offsets = torch.zeros(n + 1, dtype=torch.int32, device=src.device)
-    torch.cumsum(deg, dim=0, dtype=torch.int32, out=offsets[1:])
-    return offsets, src_s, dst_s, wgt_s
+    if presorted:
+        src_s, dst_s, wgt_s = src, dst, wgt
+    else:
+        src_s, dst_s, wgt_s = sort_coo_device(src, dst, wgt)
+    return degree_offsets(src_s, n, engine=engine), src_s, dst_s, wgt_s
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,43 @@ def test_count_degrees_engines_agree(seed):
     _eq(cb_kernel.count_degrees(s, n), exp.astype(np.int32))
 
 
+DEGREE_OFFSET_CASES = {
+    "empty": (np.zeros(0, np.int64), 5),
+    "n0_empty": (np.zeros(0, np.int64), 0),
+    "n1": (np.zeros(7, np.int64), 1),
+    "leading_and_trailing_gaps": (np.repeat([3, 4, 9], [2, 5, 1]), 40),
+    "one_vertex_holds_every_edge": (np.full(300, 17), 64),
+    "random": (np.random.default_rng(5).integers(0, 100, 1003), 100),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEGREE_OFFSET_CASES))
+def test_degree_offsets_match_repro(case):
+    """The device build's offsets (plain version on the CPU) equal
+    ``repro``'s host offsets, and their differences its degree histogram."""
+    src, n = DEGREE_OFFSET_CASES[case]
+    src = np.sort(src)
+    dst = np.zeros_like(src)
+    j = j_csr.from_coo(src, dst, n=n, dedup=False)
+    got = cb_ops.degree_offsets(torch.from_numpy(src.astype(np.int32)), n, engine="torch")
+    assert got.dtype == torch.int32 and got.shape == (n + 1,)
+    _eq(got, j.offsets)
+    _eq(torch.diff(got), j_ref.count_degrees_reference(src, n).astype(np.int32))
+    c = csr.from_coo(src, dst, n=n, dedup=False, engine="torch", presorted=True, device="cpu")
+    _eq(c.offsets, j.offsets)
+
+
+def test_degree_offsets_of_out_of_range_sources_fail_the_range_check():
+    s = torch.tensor([-2, 0, 1, 1, 4, 9], dtype=torch.int32)
+    o = cb_ops.degree_offsets(s, 4, engine="torch")
+    assert int(o[0]) == 1 and int(o[4]) == 4  # off 0 and off M = 6
+    for src in ([-1, 0, 2], [0, 2, 4]):
+        with pytest.raises(ValueError, match="out of range"):
+            csr.from_coo(src, [0, 1, 2], n=4, dedup=False, engine="torch", device="cpu")
+    with pytest.raises(ValueError, match="engine"):
+        cb_ops.degree_offsets(s, 4, engine="host")
+
+
 @pytest.mark.parametrize("seed", [3, 4])
 def test_from_coo_engine_parity(seed):
     src, dst, wgt, n = _random_coo(seed)
@@ -60,6 +97,11 @@ def test_from_coo_engine_parity(seed):
     for engine in ("host", "torch"):
         c = csr.from_coo(src, dst, wgt, n=n, dedup=False, engine=engine, device="cpu")
         assert c.offsets.dtype == torch.int32 and c.dst.dtype == torch.int32
+        # the same edges in CSR order skip the sort and give the same CSR
+        p = csr.from_coo(np.repeat(np.arange(n), np.diff(o_ref)), d_ref, w_ref, n=n,
+                         dedup=False, engine=engine, presorted=True, device="cpu")
+        for f in ("offsets", "dst", "wgt"):
+            _eq(getattr(p, f), getattr(c, f))
         _eq(c.offsets, o_ref)
         _eq(c.dst, d_ref)
         _eq(c.wgt, w_ref)

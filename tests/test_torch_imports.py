@@ -56,6 +56,20 @@ def test_port_imports_neither_jax_nor_repro():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.io.mtx", "repro_torch.io._cparse"])
+def test_file_loader_imports_neither_jax_nor_repro(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_chip_smoke_imports_only_the_port():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -121,6 +135,7 @@ def _wrapper_calls():
     rng = np.random.default_rng(0)
     vals = torch.from_numpy(rng.random((3, 128), dtype=np.float32))
     src = torch.from_numpy(rng.integers(-1, 9, 50).astype(np.int32))
+    src_s = torch.sort(src).values
     d = torch.tensor([[1, 4, 9, 2**31 - 1]], dtype=torch.int32)
     merge = (d, torch.ones(1, 4), torch.tensor([3], dtype=torch.int32),
              torch.tensor([[2, 4, 2**31 - 1, 2**31 - 1]], dtype=torch.int32),
@@ -159,6 +174,8 @@ def _wrapper_calls():
                         lambda: sw_kernel.tile_cumsum_torch(vals)),
         "count_degrees": (lambda: cb_kernel.count_degrees(src, 8),
                           lambda: cb_kernel.count_degrees_torch(src, 8)),
+        "degree_offsets": (lambda: cb_kernel.degree_offsets(src_s, 8),
+                           lambda: cb_kernel.degree_offsets_torch(src_s, 8)),
         "merge_rows_fused": (lambda: fused(su_kernel.merge_rows_fused),
                              lambda: fused(su_kernel.merge_rows_fused_torch)),
         "slot_walk_partials": (lambda: sw_kernel.slot_walk_partials(rows, vals, 8),

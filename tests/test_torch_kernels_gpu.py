@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DiGraph, edgebatch, traversal, updates
+from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
@@ -65,6 +65,94 @@ def test_count_degrees_bit_exact(cuda, m, n):
     s = torch.from_numpy(src).to(cuda)
     got = cb_kernel.count_degrees(s, n)
     assert torch.equal(got, cb_kernel.count_degrees_torch(s, n))
+
+
+def _sorted_sources(case):
+    """(sorted int32 sources, n) for the degree_offsets cases."""
+    rng = np.random.default_rng(len(case))
+    if case == "empty":
+        return np.zeros(0, np.int32), 5
+    if case == "n0":
+        return np.zeros(0, np.int32), 0
+    if case == "n1":
+        return np.zeros(9, np.int32), 1
+    if case == "gaps_at_both_ends":
+        return np.repeat(np.array([1000, 1001, 5000], np.int32), [3, 70, 2]), 2_000_000
+    if case == "one_vertex_holds_every_edge":
+        return np.full(1_000_003, 777_777, np.int32), 2_097_152
+    if case == "hubs_across_blocks":
+        return np.repeat(np.arange(0, 50, 7, dtype=np.int32), 300_001), 64
+    if case.startswith("tail_"):  # M mod 4 = 1, 2, 3
+        m = 4000 + int(case[-1])
+        return np.sort(rng.integers(0, 3000, m)).astype(np.int32), 3000
+    if case == "many_grid_passes":
+        return np.sort(rng.integers(0, 200_000, 5_000_000)).astype(np.int32), 200_000
+    if case == "power_law":
+        deg = np.minimum(rng.zipf(1.8, 100_000), 50_000)
+        return np.repeat(np.arange(100_000, dtype=np.int32), deg), 100_000
+    raise ValueError(case)
+
+
+DEGREE_OFFSET_CASES = ["empty", "n0", "n1", "gaps_at_both_ends", "one_vertex_holds_every_edge",
+                       "hubs_across_blocks", "tail_1", "tail_2", "tail_3", "many_grid_passes",
+                       "power_law"]
+
+
+@pytest.mark.parametrize("case", DEGREE_OFFSET_CASES)
+@pytest.mark.parametrize("view", [0, 1, 2, 3])
+def test_degree_offsets_bit_exact(cuda, case, view):
+    """Against torch.searchsorted and the cumsum of count_degrees, on the
+    sources as they are and as a view 1-3 elements into a larger buffer
+    (a start off the 16-byte boundary of the 128-bit loads)."""
+    src, n = _sorted_sources(case)
+    buf = torch.from_numpy(np.concatenate([np.zeros(view, np.int32), src])).to(cuda)
+    s = buf[view:]
+    before = KERNELS["degree_offsets"].launches
+    got = cb_kernel.degree_offsets(s, n)
+    assert KERNELS["degree_offsets"].launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n + 1,)
+    assert torch.equal(got, cb_kernel.degree_offsets_torch(s, n))
+    assert torch.equal(got[1:] - got[:-1], cb_kernel.count_degrees(s, n))
+    assert int(got[0]) == 0 and int(got[-1]) == s.shape[0]
+    assert torch.equal(cb_kernel.degree_offsets(s, n), got)  # same bits every call
+
+
+@pytest.mark.parametrize("src", [[-3, -1, 0, 2], [0, 1, 4, 4], [5, 6], [-1, -1]])
+def test_degree_offsets_out_of_range_sources_make_from_coo_raise(cuda, src):
+    s = torch.tensor(sorted(src), dtype=torch.int32, device=cuda)
+    got = cb_kernel.degree_offsets(s, 4)
+    assert torch.equal(got, cb_kernel.degree_offsets_torch(s, 4))
+    assert int(got[0]) != 0 or int(got[4]) != len(src)
+    with pytest.raises(ValueError, match="out of range"):
+        csr.from_coo(src, list(range(len(src))), n=4, dedup=False, engine="cuda", device=cuda)
+
+
+def test_degree_offsets_rejects_bad_operands(cuda):
+    s = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        cb_kernel.degree_offsets(s.to(torch.int64), 4)
+    with pytest.raises(ValueError):
+        cb_kernel.degree_offsets(s[::2], 4)
+    with pytest.raises(ValueError):
+        cb_kernel.degree_offsets(s, -1)
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+def test_device_build_launches_degree_offsets(cuda, presorted):
+    src, dst, wgt, n = synthetic.make_coo("social", scale=12, edge_factor=8, seed=3)
+    if presorted:
+        c = csr.from_coo(src, dst, wgt, n=n, dedup=False, device="cpu")
+        src = np.repeat(np.arange(n), np.diff(c.offsets.numpy()))
+        dst, wgt = c.dst.numpy(), c.wgt.numpy()
+    host = csr.from_coo(src, dst, wgt, n=n, dedup=False, engine="host", device=cuda)
+    for k in KERNELS.values():
+        k.launches = 0
+    got = csr.from_coo(src, dst, wgt, n=n, dedup=False, engine="cuda", device=cuda,
+                       presorted=presorted or None)
+    assert KERNELS["degree_offsets"].launches == 1
+    assert all(v.launches == 0 for k, v in KERNELS.items() if k != "degree_offsets")
+    for f in ("offsets", "dst", "wgt"):
+        assert torch.equal(getattr(got, f), getattr(host, f))
 
 
 def _fused_case(rng, a, w, k, *, grow, pad, full):
