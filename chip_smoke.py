@@ -36,6 +36,21 @@ SNAP's soc-LiveJournal1):
           slot_walk_partials kernel (timed), one walk and four batched,
           held against the plain partials and the image walk; the split
           of one step (gather, partials, seam fold)
+  stream  the paper's tasks on the other four representations (SortedCOO,
+          LazyCSR, ChunkedGraph, Vector2D), one at a time, each loaded on
+          the card from the same CSR (timed, and its clone): a sealed
+          generation builds its walk image, then the update phase's three
+          batches are replayed, each applied (timed) and followed by a
+          42-step walk through walk_flush, which patches the image
+          (merge_rows_fused) and walks it (tile_cumsum) with one host wait;
+          the walk after the mixed batch timed and split by CUDA events
+          into the patch and the steps.  Each is held against the DiGraph
+          of the update phase (to_csr bit for bit, the normalised walk),
+          its patched image against a fresh build (live rows bit for bit)
+          and against a twin patched with the plain versions (bit for bit),
+          its image audited and its sealed generation unchanged; every walk
+          after the first patches (no build, no rebuild) unless one of
+          repro's rebuild rules fires, which the phase prints
   walk_bsr
           a road graph at scale 24 (16,777,216 vertices, ~36.9M directed
           edges, the class of SuiteSparse's asia_osm) re-blocked into
@@ -370,6 +385,200 @@ def largest_call(module, name: str, size, keep=lambda args, kwargs: (args, kwarg
         setattr(module, name, inner)
 
 
+def image_live(img):
+    """(degrees, live dst, live weights) of a walk image's rows, in row
+    order, on its device: what any layout of the same graph must hold."""
+    dev = img.dst.device
+    nv = img.nv
+    degs = torch.from_numpy(img.degs[:nv].copy()).to(dev)
+    starts = torch.from_numpy(np.maximum(img.starts[:nv], 0)).to(dev)
+    m = int(img.degs[:nv].sum())
+    shift = torch.repeat_interleave(starts - (torch.cumsum(degs, 0) - degs), degs, output_size=m)
+    gidx = shift + torch.arange(m, device=dev)
+    return degs, img.dst[gidx], img.wgt[gidx]
+
+
+def rebuild_rule(img, plan, alloc) -> str | None:
+    """The rebuild rule of ``repro``'s walk image that the next flush of
+    ``plan`` meets, or None when it patches (the rules of
+    ``WalkImage._plan_patch`` and ``queue``, checked without mutating)."""
+    if img is None:
+        return "no cached image"
+    if img._stale:
+        return "stale image (MAX_PENDING overflow or compaction)"
+    if plan.max_insert_vertex() >= img.nv:
+        return "vertex growth"
+    _, rows, deg_old, ins = plan.active_rows(img.degs, img.nv)
+    ub = deg_old + ins
+    grow = ub > img.caps[rows]
+    if img.bump + int(alloc.edge_capacities(ub[grow]).sum()) > img.cap_e:
+        return "bump slack exhausted"
+    return None
+
+
+def twin_image(img):
+    """A private copy of a walk image and its queued plans."""
+    return dataclasses.replace(
+        img, dst=img.dst.clone(), wgt=img.wgt.clone(), rows=img.rows.clone(),
+        starts=img.starts.copy(), caps=img.caps.copy(), degs=img.degs.copy(),
+        _pending=list(img._pending), _blocks=None, _cow=False)
+
+
+def stream_phase(c, g, plans, vk, launches: dict, times: dict, dev) -> None:
+    """The stream phase: paper tasks 1-4 on SortedCOO, LazyCSR, ChunkedGraph
+    and Vector2D, one at a time (see the module docstring).  ``c`` is the
+    CSR the DiGraph ``g`` was loaded from, ``plans`` the update phase's
+    (name, plan) batches, ``vk`` the DiGraph's normalised walk after them;
+    kernel launches add into ``launches``, times into ``times``."""
+    from repro_torch.core import REPRESENTATIONS, alloc, walk_image
+    from repro_torch.core import chunked as chunked_mod
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.slot_update import kernel as su_kernel
+    from repro_torch.kernels.slot_update import ops as su_ops
+    from repro_torch.kernels.slot_walk import kernel as sw_kernel
+    from repro_torch.kernels.slot_walk import ops as sw_ops
+
+    ref = g.to_csr()
+    plain_merge = ("gather_merge_torch", "merge_rows_fused_torch")
+
+    def merge_shape(args):  # ChunkedGraph's row merge: (A, K, W) of its [A, K, W] tensor
+        return args[0].shape[0], args[2].shape[1], args[0].shape[1]
+    for rep in ("coo", "lazy", "chunked", "vector2d"):
+        cls = REPRESENTATIONS[rep]
+        r0 = t0 = sync_now()
+        with counted(KERNELS, launches):
+            r = cls.from_csr(c, device=dev)
+        times[f"{rep}_load_ms"] = sync_s(t0) * 1e3
+        t0 = sync_now()
+        with counted(KERNELS, launches):
+            cl = r.clone()
+        times[f"{rep}_clone_ms"] = sync_s(t0) * 1e3
+        a_, b_ = cl.to_csr(), r.to_csr()
+        for f in ("offsets", "dst", "wgt"):
+            if not torch.equal(getattr(a_, f), getattr(b_, f)):
+                raise AssertionError(f"stream/{rep}: clone {f} differs")
+        del cl, a_, b_
+        t0 = sync_now()
+        gen = walk_image.seal_generation(r, 0)  # builds the image, then seals it
+        build_ms = sync_s(t0) * 1e3
+        sums = {f: checksum(getattr(gen, f)) for f in ("dst", "wgt", "rows")}
+        with counted(KERNELS, launches):
+            r.reverse_walk(WALK_STEPS)
+        stats = dict.fromkeys(walk_image.STATS, 0)
+        rep_launches = dict.fromkeys(KERNELS, 0)
+        rules, wsplit, twin_note, eq_shape = [], {}, "no twin", (0, 0, 0)
+        for bname, plan in plans:
+            spy = (largest_call(chunked_mod, "_apply_rows", lambda a_: np.prod(merge_shape(a_)),
+                                lambda a_, k_: (merge_shape(a_), {}))
+                   if rep == "chunked" else contextlib.nullcontext({}))
+            t0 = sync_now()
+            with counted(KERNELS, launches), spy as seen:
+                r, _ = r.apply(plan)
+            times[f"{rep}_{bname}_ms"] = sync_s(t0) * 1e3
+            if seen and np.prod(seen["args"]) > np.prod(eq_shape):
+                eq_shape = seen["args"]
+            rimg = r._image
+            rule = rebuild_rule(rimg, plan, alloc)
+            twin = twin_image(rimg) if bname == "mixed" and rule is None else None
+            before, stats0 = dict(rep_launches), walk_image.stats_snapshot()
+            t0 = sync_now()
+            with counted(KERNELS, rep_launches), count_calls(su_kernel, plain_merge) as pm, \
+                    count_calls(sw_kernel, ("tile_cumsum_torch",)) as pc, \
+                    timed_calls(su_ops, "fused_apply") as fa, \
+                    timed_calls(sw_ops, "slot_walk_multi_blocked") as ws:
+                r.reverse_walk(WALK_STEPS)
+            walk_ms = sync_s(t0) * 1e3
+            for k_, v_ in walk_image.stats_snapshot().items():
+                stats[k_] += v_ - stats0[k_]
+            if any(pm.values()) or any(pc.values()):
+                raise AssertionError(f"stream/{rep}/{bname}: plain versions ran: {pm} {pc}")
+            steps_run = rep_launches["tile_cumsum"] - before["tile_cumsum"]
+            if steps_run != WALK_STEPS:
+                raise AssertionError(f"stream/{rep}/{bname}: {steps_run} tile_cumsum launches")
+            if rule is None and (len(fa) != 1 or rep_launches["merge_rows_fused"]
+                                 == before["merge_rows_fused"]):
+                raise AssertionError(f"stream/{rep}/{bname}: the walk did not patch the image")
+            if rule is None and r._image._stale:
+                rule = "compaction (occupancy under half of the build's)"
+            if rule is not None:
+                rules.append(f"{bname}: {rule}")
+            if bname == "mixed":
+                times[f"{rep}_walk_ms"] = walk_ms
+                fused = sum(a_.elapsed_time(b_) for a_, b_, _ in fa)
+                steps_ev = sum(a_.elapsed_time(b_) for a_, b_, _ in ws)
+                wsplit = {"walk_patch_event_ms": fused - steps_ev,
+                         "walk_steps_event_ms": steps_ev,
+                         "merge_launches": rep_launches["merge_rows_fused"]
+                         - before["merge_rows_fused"]}
+            if twin is not None:
+                # the mixed batch's patch again, on a copy, with the plain
+                # versions: the same image bit for bit, the same walk
+                twin_launches = dict.fromkeys(KERNELS, 0)
+                with counted(KERNELS, twin_launches), count_calls(su_kernel, plain_merge) as pm:
+                    vt = twin.walk_flush(WALK_STEPS, backend="torch", normalize=True)
+                if vt is None or any(twin_launches.values()) or not any(pm.values()):
+                    raise AssertionError(f"stream/{rep}: the plain twin did not patch alone")
+                rimg = r._image
+                for f in ("dst", "wgt", "rows"):
+                    if not torch.equal(getattr(rimg, f).view(torch.int32),
+                                       getattr(twin, f).view(torch.int32)):
+                        raise AssertionError(f"stream/{rep}: merge_rows_fused {f} differs "
+                                             "from the plain twin")
+                for f in ("starts", "caps", "degs"):
+                    if not np.array_equal(getattr(rimg, f), getattr(twin, f)):
+                        raise AssertionError(f"stream/{rep}: patched {f} differs from the twin")
+                if (rimg.bump, rimg.live) != (twin.bump, twin.live):
+                    raise AssertionError(f"stream/{rep}: bump/live differ from the twin")
+                for x_, y_ in zip(rimg.device_blocks(), twin.device_blocks()):
+                    if not torch.equal(x_, y_):
+                        raise AssertionError(f"stream/{rep}: [lo, hi) differ from the twin")
+                vi = rimg.walk(WALK_STEPS, normalize=True, backend="cuda")
+                torch.testing.assert_close(vi, vt, rtol=WALK_RTOL, atol=WALK_ATOL)
+                twin_note = "bit-identical image, walk rtol 5e-4"
+                del twin, vt, vi
+        for k_, v_ in rep_launches.items():
+            launches[k_] += v_
+        if not rules and (stats["builds"] or stats["rebuilds"] or stats["patches"] != 3):
+            raise AssertionError(f"stream/{rep}: walks after the first did not all patch: "
+                                 f"{stats}")
+        out = r.to_csr()
+        for f in ("offsets", "dst", "wgt"):
+            if not torch.equal(getattr(out, f), getattr(ref, f)):
+                raise AssertionError(f"stream/{rep}: to_csr {f} differs from the DiGraph's")
+        del out
+        vn = r.reverse_walk(WALK_STEPS, normalize=True)
+        torch.testing.assert_close(vn, vk, rtol=WALK_RTOL, atol=WALK_ATOL)
+        del vn
+        rimg, r._image = r._image, None
+        fresh = r.to_walk_image()  # a fresh build of the same representation
+        r._image = rimg
+        for x_, y_ in zip(image_live(rimg), image_live(fresh)):
+            if not torch.equal(x_.view(torch.int32), y_.view(torch.int32)):
+                raise AssertionError(f"stream/{rep}: patched image rows differ from a fresh build")
+        del fresh
+        audit = rimg.audit()
+        for f, s_ in sums.items():
+            if checksum(getattr(gen, f)) != s_:
+                raise AssertionError(f"stream/{rep}: sealed generation buffer {f} changed")
+        say("stream", rep=rep, rep_s=f"{time.perf_counter() - r0:.1f}", m=r.m, nv=rimg.nv,
+            cap_e=rimg.cap_e, bump=rimg.bump, occupancy=f"{rimg.occupancy:.4f}", load_ms=f"{times[f'{rep}_load_ms']:.1f}",
+            clone_ms=f"{times[f'{rep}_clone_ms']:.2f}", seal_build_ms=f"{build_ms:.1f}",
+            **{f"{b_}_ms": f"{times[f'{rep}_{b_}_ms']:.1f}" for b_, _ in plans},
+            walk_ms=f"{times[f'{rep}_walk_ms']:.1f}",
+            **{k_: (v_ if isinstance(v_, int) else f"{v_:.4f}") for k_, v_ in wsplit.items()},
+            merge_launches_total=rep_launches["merge_rows_fused"],
+            tile_cumsum_launches=rep_launches["tile_cumsum"], plain_calls=0,
+            stats="+".join(f"{k_}{v_}" for k_, v_ in stats.items()),
+            rebuild_rules="; ".join(rules) or "none fired", to_csr="bit-identical to DiGraph",
+            walk_vs_digraph="normalised, rtol 5e-4", fresh_image="live rows bit-identical",
+            twin=twin_note, audit=f"passed ({audit['blocks']} blocks)", generation="unchanged",
+            **({"largest_row_merge": "x".join(map(str, eq_shape)), "its_passes": -(
+                -eq_shape[0] // max(chunked_mod.EQ_ELEMS_MAX // (eq_shape[1] * eq_shape[2]), 1))}
+               if rep == "chunked" else {}))
+        del r, gen, rimg
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -540,6 +749,7 @@ def main() -> None:
             deletes=edgebatch.random_deletions(rng, g.to_csr(), n_half))),
     ]
     merge_case = None
+    plans = []
 
     def keep_merge(args, kwargs):
         """The arena and [lo, hi) as the apply found them, and its largest
@@ -551,6 +761,7 @@ def main() -> None:
 
     for name, make in batches:
         plan = make()
+        plans.append((name, plan))
         # warm-up: the same plan on a copy, timed as the first call of this
         # batch (the batch a stream of updates starts with pays its costs)
         warm = g.clone()
@@ -671,6 +882,11 @@ def main() -> None:
         live_rank_share=f"{live:.4f}",
         vs_plain="rtol 5e-4", vs_image_walk="rtol 5e-4", b4_vs_plain="rtol 5e-4")
     phase_s["walk_slotted_s"] = time.perf_counter() - p0
+
+    # 7b. stream (paper tasks 1-4 on the other four representations) -----
+    p0 = time.perf_counter()
+    stream_phase(c, g, plans, vk, launches, times, dev)
+    phase_s["stream_s"] = time.perf_counter() - p0
 
     # 8. walk_bsr (paper task 4 as iterated block-sparse SpMM) ------------
     p0 = t0 = sync_now()

@@ -211,6 +211,24 @@ def _build_device(src, dst, wgt, *, n: int, engine: str, presorted: bool) -> CSR
     )
 
 
+def from_dense(a, *, device="cuda") -> CSR:
+    """Dense adjacency (numpy) -> CSR on ``device``: nonzeros are edges,
+    their values the weights."""
+    a = np.asarray(a)
+    src, dst = np.nonzero(a)
+    return from_coo(src, dst, a[src, dst], n=a.shape[0], device=device)
+
+
+def from_sorted(src: torch.Tensor, dst: torch.Tensor, wgt: torch.Tensor, n: int) -> CSR:
+    """CSR of unique, (src, dst)-sorted edge tensors, on their device: the
+    offsets are read off the sorted sources (what ``from_coo`` with
+    ``dedup=False`` builds from such edges, without the host round trip)."""
+    ids = torch.arange(n + 1, dtype=src.dtype, device=src.device)
+    offsets = torch.searchsorted(src, ids).to(torch.int32)
+    return CSR(offsets=offsets, dst=dst.to(torch.int32), wgt=wgt.to(torch.float32),
+               n=int(n), m=int(src.shape[0]))
+
+
 def validate(csr: CSR) -> None:
     """Invariant checks (tests): offsets monotone, rows sorted unique."""
     o = util.host(csr.offsets)

@@ -103,6 +103,122 @@ def scatter_padded_rows(flat_vals: torch.Tensor, rows: torch.Tensor,
     return out
 
 
+def lexsort2(primary: torch.Tensor, secondary: torch.Tensor) -> torch.Tensor:
+    """Order sorting by (primary, secondary), both int arrays; stable.
+
+    Equivalent to ``np.lexsort((secondary, primary))``.  int32 pairs sort
+    as ONE packed int64 key (``secondary`` offset by 2^31 so negative ids
+    keep their order); wider ids take two stable argsorts.
+    """
+    if primary.dtype == torch.int32 and secondary.dtype == torch.int32:
+        key = (primary.to(torch.int64) << 32) + (secondary.to(torch.int64) + 2**31)
+        return torch.argsort(key, stable=True)
+    order = torch.argsort(secondary, stable=True)
+    return order[torch.argsort(primary[order], stable=True)]
+
+
+def dedup_sorted_rows(keys: torch.Tensor, *values: torch.Tensor):
+    """Row-wise dedup of key-sorted 2D tensors, compacting to the left.
+
+    ``keys``: [R, K] int32, each row ascending with SENTINEL padding.
+    Duplicate keys (after the first occurrence) become SENTINEL and the
+    rows are re-sorted so live entries stay contiguous; ``values`` ride
+    the same permutation.  Returns (keys, *values, counts).
+    """
+    prev = torch.cat([torch.full((keys.shape[0], 1), -1, dtype=keys.dtype,
+                                 device=keys.device), keys[:, :-1]], dim=1)
+    masked = torch.where(keys == prev, int(SENTINEL), keys)
+    order = torch.argsort(masked, dim=1, stable=True)
+    keys_out = torch.gather(masked, 1, order)
+    vals_out = tuple(torch.gather(v, 1, order) for v in values)
+    counts = (keys_out != int(SENTINEL)).sum(dim=1).to(torch.int32)
+    return (keys_out, *vals_out, counts)
+
+
+def searchsorted_rows(rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Per-row searchsorted (left): rows [R, K] ascending, queries [R, Q]."""
+    return torch.searchsorted(rows.contiguous(), queries.contiguous())
+
+
+def row_contains(rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Membership of queries [R, Q] in sorted rows [R, K] -> bool [R, Q]."""
+    pos = searchsorted_rows(rows, queries).clamp(0, rows.shape[1] - 1)
+    found = torch.gather(rows, 1, pos) == queries
+    return found & (queries != int(SENTINEL))
+
+
+def segment_sum(vals: torch.Tensor, segment_ids: torch.Tensor, num: int) -> torch.Tensor:
+    """Sum ``vals`` rows into ``num`` segments; ids outside [0, num) drop."""
+    ids = segment_ids.to(torch.int64)
+    ok = (ids >= 0) & (ids < num)
+    out = torch.zeros((num, *vals.shape[1:]), dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, ids[ok], vals[ok])
+
+
+def coo_sort(src: torch.Tensor, dst: torch.Tensor, *values: torch.Tensor):
+    """Sort COO edges by (src, dst); carries values. Stable."""
+    order = lexsort2(src, dst)
+    return (src[order], dst[order], *(v[order] for v in values))
+
+
+def coo_dedup_mask(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """For (src, dst)-sorted COO: True where the entry is the FIRST of its key."""
+    first = torch.ones(src.shape[0], dtype=torch.bool, device=src.device)
+    first[1:] = ~((src[1:] == src[:-1]) & (dst[1:] == dst[:-1]))
+    return first
+
+
+def binsearch_window(flat: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     queries: torch.Tensor):
+    """Per-query binary search in windows of a flat sorted buffer.
+
+    ``flat`` is ascending within each window [lo_i, hi_i).  Returns
+    (pos, found): ``pos`` is the leftmost index in the window with
+    flat[pos] >= q, ``found`` whether flat[pos] == q.  Vectorized over
+    the queries; 32 halvings cover int32 windows.
+    """
+    lo = lo.to(torch.int64)
+    hi = hi.to(torch.int64)
+    if flat.shape[0] == 0:
+        return lo, torch.zeros(queries.shape, dtype=torch.bool, device=queries.device)
+    last = flat.shape[0] - 1
+    l, h = lo, hi
+    for _ in range(32):
+        mid = (l + h) // 2
+        go_right = flat[mid.clamp(0, last)] < queries
+        open_ = l < h
+        l, h = (torch.where(go_right & open_, mid + 1, l),
+                torch.where(go_right | ~open_, h, mid))
+    found = (l < hi) & (flat[l.clamp(0, last)] == queries)
+    return l, found
+
+
+def pair_keys(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """(src, dst) int32 id pairs -> int64 keys in lexicographic order.
+
+    Ids are non-negative and at most SENTINEL, so ``src << 32 | dst`` sorts
+    like the pair and SENTINEL pairs sort last.
+    """
+    return (src.to(torch.int64) << 32) | dst.to(torch.int64)
+
+
+def searchsorted_2d(s_sorted: torch.Tensor, d_sorted: torch.Tensor,
+                    qs: torch.Tensor, qd: torch.Tensor):
+    """Binary search for (qs, qd) pairs in a (src, dst)-lexsorted COO.
+
+    One ``torch.searchsorted`` over packed int64 keys (``pair_keys``).
+    Returns (pos, found) like ``binsearch_window``: ``pos`` is the leftmost
+    slot whose pair is >= the query.
+    """
+    n = s_sorted.shape[0]
+    keys = pair_keys(s_sorted, d_sorted)
+    q = pair_keys(qs, qd)
+    pos = torch.searchsorted(keys, q)
+    if n == 0:
+        return pos, torch.zeros(q.shape, dtype=torch.bool, device=q.device)
+    return pos, (pos < n) & (keys[pos.clamp(max=n - 1)] == q)
+
+
 def expand_rows(offsets: torch.Tensor, total: int) -> torch.Tensor:
     """CSR offsets [N+1] -> row id per edge slot [total] (searchsorted)."""
     pos = torch.arange(total, dtype=offsets.dtype, device=offsets.device)

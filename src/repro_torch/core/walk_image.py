@@ -3,13 +3,33 @@
 A representation lowers to ONE canonical device traversal image: a packed
 edge buffer (``dst``/``wgt``/``rows``, SENTINEL on dead slots) plus
 per-vertex ``[lo, hi)`` block intervals — exactly the operand set the
-``kernels/slot_walk`` engine consumes.
+``kernels/slot_walk`` engine consumes.  The image is incrementally
+maintained under update streams instead of being rebuilt per walk:
 
-This slice ports the part that arena-backed (``shared=True``) images use:
-``DiGraph``'s arena *is* its image, so the wrap aliases the live buffers
-and the rep's own update engine keeps them current.  The queue / patch /
-``walk_flush`` / ``seal`` maintenance of ``repro``'s non-shared images is
-not ported yet.
+  * representations *queue* each applied ``UpdatePlan`` on their cached
+    image (``queue``), and the next walk *flushes* the queue by patching
+    the touched rows in place through ``kernels/slot_update.fused_apply``
+    (one ``merge_rows_fused`` launch per width group on the card); on the
+    walk path (``walk_flush``) the k-step walk is queued right behind the
+    merges, so a stream round waits for the device once, for the merge
+    counts;
+  * rows sit in CP2AA slack-padded blocks (``alloc.edge_capacities``), or
+    densely when the source layout's slack would dominate the walked
+    prefix (``DENSE_THRESHOLD``);
+  * a row that outgrows its slack relocates to a fresh block at the
+    image's bump pointer in the same launch;
+  * the patch path gives up (the owner rebuilds) only when the bump slack
+    is exhausted, the vertex set grows, the queue got too deep to be worth
+    replaying (``MAX_PENDING``), or dead slots came to dominate the walked
+    prefix (``COMPACT_THRESHOLD``).
+
+``DiGraph`` is the degenerate case: its arena *is* its image, so
+``shared=True`` aliases the live buffers and the rep's own update engine
+keeps them current (shared images never patch).
+
+Torch tensors are mutable, so a sealed generation (``seal``) that shares
+the live image's payload is protected explicitly: while ``_cow`` is set the
+next patch copies ``dst``/``wgt``/``rows`` before writing into them.
 """
 from __future__ import annotations
 
@@ -22,9 +42,73 @@ import torch
 from . import alloc, util
 
 SENTINEL = util.SENTINEL
+
+#: Queue depth beyond which replaying patches is judged worse than one
+#: rebuild (each pending plan costs a fused apply).
+MAX_PENDING = 32
+#: Fraction of the BUILD-TIME occupancy below which a flush demands a
+#: rebuild instead of further patching: dead slots of relocated / deleted
+#: rows otherwise accumulate in the walked prefix forever.  Relative to
+#: the layout's own slack, so it fires only when a rebuild would densify.
+COMPACT_THRESHOLD = 0.5
+#: Don't bother occupancy-rebuilding images smaller than this.
+COMPACT_MIN_SLOTS = 4 * 128
 #: Build-time live fraction below which an image build strips the source
-#: layout's slack entirely (caps == degrees, occupancy 1.0).
+#: layout's slack entirely (caps == degrees, occupancy 1.0).  CP2AA
+#: layouts build at ~0.65-0.7 and keep their slack; ChunkedGraph's PAGE
+#: quantization builds at ~0.3 and compacts.
 DENSE_THRESHOLD = 0.55
+
+#: Module-level maintenance counters: tests and benchmarks read these to
+#: prove walks do no host image work (builds) between updates, and how
+#: many fused applies / walks a stream round took.
+STATS = {"builds": 0, "patches": 0, "rebuilds": 0, "dispatches": 0, "seals": 0}
+
+
+def stats_snapshot() -> dict:
+    return dict(STATS)
+
+
+def seal_generation(rep, generation: int = 0) -> "WalkImage":
+    """Seal ``rep``'s current state as an immutable walk generation (§16).
+
+    * queueing reps (coo/lazy/chunked/vector2d): ``to_walk_image()``
+      flushes or rebuilds the cached image, then :meth:`WalkImage.seal`
+      shares its payload and arms the copy-on-write flag on the live image;
+    * arena-backed reps (DiGraph, ``shared=True`` images): the rep's own
+      per-buffer COW is the isolation — ``rep.snapshot()`` seals the arena
+      buffers (the next in-place update copies only what it writes) and
+      the snapshot's image wrap becomes the frozen generation.
+    """
+    img = rep.to_walk_image()
+    if not img.shared:
+        return img.seal(generation)
+    snap = rep.snapshot()
+    gen = snap.to_walk_image()
+    gen.generation = int(generation)
+    gen._frozen = True
+    # detach from the snapshot handle: the generation must stay exactly
+    # as sealed even if someone mutates the snapshot rep later.
+    snap._image = None
+    STATS["seals"] += 1
+    return gen
+
+
+def reverse_walk_via_image(rep, steps: int, *, backend: str = "auto",
+                           normalize: bool = False, visits0=None):
+    """The shared reverse_walk body of every image-queueing representation.
+
+    Try the fused flush→walk on the cached image (§12); fall back to the
+    eager flush-or-rebuild path (``to_walk_image``) when the image is
+    absent or can only be rebuilt.
+    """
+    img = rep._image
+    if img is not None:
+        out = img.walk_flush(steps, backend=backend, normalize=normalize, visits0=visits0)
+        if out is not None:
+            return out
+    return rep.to_walk_image(backend=backend).walk(
+        steps, backend=backend, normalize=normalize, visits0=visits0)
 
 
 @dataclasses.dataclass
@@ -42,13 +126,32 @@ class WalkImage:
     nv: int             # vertices the walk covers (visits length)
     bump: int           # first never-allocated slot
     live: int           # live edges in the image
-    #: True when dst/wgt/rows alias the owner's own arena (DiGraph)
+    #: True when dst/wgt/rows alias the owner's own arena (DiGraph):
+    #: kept current by the rep — never patched here.
     shared: bool = False
+    #: occupancy as built — the densest this layout can be; the compact
+    #: trigger fires relative to it (see COMPACT_THRESHOLD).
     base_occupancy: float = 1.0
-    # device [lo, hi) interval cache
+    # device [lo, hi) interval cache + queued plans
     _blocks: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    _pending: list = dataclasses.field(
+        default_factory=list, repr=False, compare=False
+    )
+    #: set once the queue overflowed MAX_PENDING (or a fused walk left the
+    #: occupancy below the compaction trigger): the image can only be
+    #: rebuilt, so further plans are dropped instead of pinned.
+    _stale: bool = dataclasses.field(default=False, repr=False, compare=False)
+    #: sealed-generation id (§16); -1 on live (unsealed) images.
+    generation: int = -1
+    #: True on a sealed generation: read-only — ``queue`` raises and the
+    #: patch engine never touches it.
+    _frozen: bool = dataclasses.field(default=False, repr=False, compare=False)
+    #: True while a sealed generation still shares this live image's
+    #: payload: the next patch copies dst/wgt/rows before its in-place
+    #: merge (per-buffer copy-on-write), then the flag clears.
+    _cow: bool = dataclasses.field(default=False, repr=False, compare=False)
 
     @property
     def cap_e(self) -> int:
@@ -58,6 +161,89 @@ class WalkImage:
     def occupancy(self) -> float:
         """Live-edge fraction of the image's allocated slot prefix."""
         return self.live / max(int(self.bump), 1)
+
+    # ------------------------------------------------------------------
+    # integrity (DESIGN.md §13 — the auditor's image half)
+    # ------------------------------------------------------------------
+    def audit(self) -> dict:
+        """Geometry + content invariant sweep; raises ``AuditError``.
+
+        Blocks live inside the bump frontier and are pairwise disjoint,
+        every live slot carries an in-range destination owned by its
+        block's row and rows stay strictly ascending, slack slots are
+        SENTINEL (the merge reads on it — a non-SENTINEL slack slot would
+        resurrect a ghost edge on the next patch), and the per-row degrees
+        account for exactly ``self.live`` edges.
+        """
+        from ..runtime import faultinject as _fi
+
+        chk = _fi._check
+        nv, bump, cap_e = int(self.nv), int(self.bump), self.cap_e
+        chk(0 <= bump <= cap_e, f"bump {bump} outside [0, cap_e {cap_e}]")
+        chk(
+            self.starts.shape[0] >= nv
+            and self.caps.shape[0] >= nv
+            and self.degs.shape[0] >= nv,
+            "block geometry arrays shorter than nv",
+        )
+        starts = np.asarray(self.starts[:nv], np.int64)
+        caps = np.asarray(self.caps[:nv], np.int64)
+        degs = np.asarray(self.degs[:nv], np.int64)
+        chk(bool((degs >= 0).all()), "negative image degree")
+        chk(bool((caps >= degs).all()), "image degree exceeds block capacity")
+        blocked = caps > 0
+        chk(bool((degs[~blocked] == 0).all()), "edges on a block-less row")
+        chk(bool((starts[blocked] >= 0).all()), "blocked row with start < 0")
+        chk(
+            bool(((starts[blocked] + caps[blocked]) <= bump).all()),
+            "block extends past the bump frontier",
+        )
+        if blocked.any():
+            order = np.argsort(starts[blocked], kind="stable")
+            s_b, c_b = starts[blocked][order], caps[blocked][order]
+            chk(
+                bool(((s_b[:-1] + c_b[:-1]) <= s_b[1:]).all()),
+                "overlapping blocks",
+            )
+        m = int(degs.sum())
+        chk(m == int(self.live), f"degree sum {m} != image live {int(self.live)}")
+        n_blocks = int(blocked.sum())
+        d = util.host(self.dst)
+        if m:
+            w = util.host(self.wgt)
+            r = util.host(self.rows)
+            first = np.cumsum(degs) - degs
+            gidx = np.repeat(starts, degs) + (
+                np.arange(m, dtype=np.int64) - np.repeat(first, degs)
+            )
+            owner = np.repeat(np.arange(nv, dtype=np.int64), degs)
+            dl, wl, rl = d[gidx], w[gidx], r[gidx]
+            chk(not bool((dl == SENTINEL).any()), "SENTINEL inside a live prefix")
+            chk(
+                bool((dl >= 0).all()) and bool((dl < nv).all()),
+                "image dst id out of [0, nv)",
+            )
+            chk(bool((rl == owner).all()), "live slot owned by the wrong row")
+            chk(bool(np.isfinite(wl).all()), "non-finite live image weight")
+            interior = owner[1:] == owner[:-1]
+            chk(
+                not bool((interior & (dl[1:] <= dl[:-1])).any()),
+                "image row not strictly ascending",
+            )
+        slack = caps - degs
+        if int(slack.sum()):
+            sfirst = np.cumsum(slack) - slack
+            sidx = np.repeat(starts + degs, slack) + (
+                np.arange(int(slack.sum()), dtype=np.int64)
+                - np.repeat(sfirst, slack)
+            )
+            chk(bool((d[sidx] == SENTINEL).all()), "non-SENTINEL slack slot")
+        return {
+            "blocks": n_blocks,
+            "bump": bump,
+            "slack": int(slack.sum()),
+            "occupancy": self.occupancy,
+        }
 
     # ------------------------------------------------------------------
     # construction
@@ -95,6 +281,7 @@ class WalkImage:
             o, dst[:m], w[:m], starts, caps, cap_e, nv,
             total=total, device=device, engine=engine,
         )
+        STATS["builds"] += 1
         return cls(
             dst=dst_d, wgt=wgt_d, rows=rows_d,
             starts=starts.astype(np.int64), caps=caps.astype(np.int64),
@@ -105,7 +292,8 @@ class WalkImage:
     @classmethod
     def from_blocks(cls, dst, wgt, rows, starts, caps, degs, nv: int,
                     bump: int, live: int, *, shared: bool = False) -> "WalkImage":
-        """Wrap pre-blocked device buffers (the DiGraph arena)."""
+        """Wrap pre-blocked device buffers (DiGraph arena, page gathers)."""
+        STATS["builds"] += 1
         return cls(
             dst=dst, wgt=wgt, rows=rows,
             starts=np.asarray(starts, np.int64),
@@ -114,6 +302,203 @@ class WalkImage:
             nv=int(nv), bump=int(bump), live=int(live), shared=shared,
             base_occupancy=int(live) / max(int(bump), 1),
         )
+
+    # ------------------------------------------------------------------
+    # generation sealing (DESIGN.md §16 — snapshot-isolated serving)
+    # ------------------------------------------------------------------
+    def seal(self, generation: int = 0) -> "WalkImage":
+        """Seal the current state as a read-only generation.
+
+        O(1) on the device: the sealed image *shares* the live payload and
+        copies only the host geometry.  The live image is flagged ``_cow``,
+        so its next patch copies dst/wgt/rows before merging into them in
+        place and the generation keeps the buffers it sealed.  Readers
+        walk the generation while the writer patches the live image.
+
+        Requires a flushed image (no queued plans, not stale);
+        ``seal_generation`` flushes or rebuilds first.  Shared (arena)
+        images cannot seal here: snapshot the owner rep instead.
+        """
+        if self.shared:
+            raise ValueError("seal(): shared image — snapshot the owner rep")
+        if self._pending or self._stale:
+            raise ValueError("seal(): image has unflushed plans")
+        gen = WalkImage(
+            dst=self.dst, wgt=self.wgt, rows=self.rows,
+            starts=self.starts[: self.nv].copy(),
+            caps=self.caps[: self.nv].copy(),
+            degs=self.degs[: self.nv].copy(),
+            nv=self.nv, bump=self.bump, live=self.live,
+            base_occupancy=self.base_occupancy,
+            generation=int(generation), _frozen=True,
+        )
+        self._cow = True
+        STATS["seals"] += 1
+        return gen
+
+    # ------------------------------------------------------------------
+    # incremental maintenance
+    # ------------------------------------------------------------------
+    def queue(self, plan) -> None:
+        """Record an applied UpdatePlan; the next walk flushes it.
+
+        Past MAX_PENDING the image is only ever rebuilt, so the queue is
+        dropped and the image marked stale — an update-only stream must
+        not pin every plan's batch arrays until someone walks.
+        """
+        if self._frozen:
+            raise RuntimeError(
+                f"sealed walk generation {self.generation} is read-only"
+            )
+        if self.shared or self._stale:  # shared: the arena IS the image
+            return
+        self._pending.append(plan)
+        if len(self._pending) > MAX_PENDING:
+            self._pending.clear()
+            self._stale = True
+
+    def block_ranges(self, rows: np.ndarray) -> np.ndarray:
+        """``[K, 2]`` half-open slot ranges of ``rows``'s CURRENT blocks.
+
+        A relocated row's old slots are cleared to SENTINEL, so a caller
+        tracking dirty bytes asks before AND after a patch.  Rows without
+        a block contribute nothing.
+        """
+        rows = np.asarray(rows, np.int64)
+        st = np.asarray(self.starts[rows], np.int64)
+        cp = np.asarray(self.caps[rows], np.int64)
+        has = (st >= 0) & (cp > 0)
+        return np.stack([st[has], st[has] + cp[has]], axis=1)
+
+    def _needs_compact(self) -> bool:
+        return (
+            self.bump >= COMPACT_MIN_SLOTS
+            and self.occupancy < COMPACT_THRESHOLD * self.base_occupancy
+        )
+
+    def flush(self, *, backend: str = "auto") -> bool:
+        """Patch all queued plans in; False = owner must rebuild.
+
+        ``backend`` picks the merge: ``cuda`` (the kernel), ``torch`` (its
+        plain version) or ``auto`` (by device).
+        """
+        backend = util.resolve_backend(backend, self.dst.device)
+        if self._stale:
+            STATS["rebuilds"] += 1
+            return False
+        if not self._pending:
+            return True
+        while self._pending:
+            if not self._patch_one(self._pending[0], backend):
+                STATS["rebuilds"] += 1
+                return False
+            self._pending.pop(0)
+        # occupancy-triggered compaction: once dead slots dominate the
+        # walked prefix (relative to the layout as built), one rebuild
+        # beats every later walk dragging them through the step loop
+        if self._needs_compact():
+            STATS["rebuilds"] += 1
+            return False
+        return True
+
+    # -- patch pipeline: host planning, fused apply, host commit ---------
+    def _plan_patch(self, plan):
+        """Host half of one plan's patch: geometry + ``fused_apply`` operands.
+
+        Mirrors ``DiGraph._apply_impl``'s planning against the image's own
+        geometry (every pow-2 width class of the plan in one call; grown
+        rows land in fresh bump blocks).  Returns None when only a rebuild
+        can represent the result (new vertices, or a grown row with no
+        bump slack left) — every failure check precedes the one mutation
+        (the bump pointer), so a failed planning pass is side-effect free.
+        """
+        from ..kernels.slot_update import ops as _su_ops
+
+        if plan.n_ops == 0:
+            return ()
+        if plan.max_insert_vertex() >= self.nv:
+            return None  # vertex growth changes the visits shape: rebuild
+        sel, rows, deg_old, ins_count = plan.active_rows(self.degs, self.nv)
+        if sel.shape[0] == 0:
+            return ()
+        old_caps = self.caps[rows]
+        old_starts = self.starts[rows]
+        ub = deg_old + ins_count
+        grow = ub > old_caps
+        new_caps = old_caps.copy()
+        new_starts = old_starts.copy()
+        if grow.any():
+            need = alloc.edge_capacities(ub[grow])
+            if self.bump + int(need.sum()) > self.cap_e:
+                return None  # slack exhausted: a rebuild repacks densely
+            g_idx = np.nonzero(grow)[0]
+            new_caps[g_idx] = need
+            new_starts[g_idx] = self.bump + (np.cumsum(need) - need)
+            self.bump += int(need.sum())
+
+        dev = self.dst.device
+        has_moves = bool(grow.any())
+        touched = int(new_caps.sum() + old_caps[grow].sum())
+        scatter = _su_ops.choose_scatter(self.cap_e, touched, dev)
+        groups, layout = plan.fused_groups(
+            sel, rows, deg_old, grow,
+            old_starts, old_caps, new_starts, new_caps,
+            _su_ops.width_floor(dev), self.nv,
+        )
+        slot_map = owner_patch = None
+        if not scatter:
+            rebuild_hi = self.edges_hi()  # post-growth bump, same lattice
+            slot_map, owner_patch = _su_ops.host_patch_layout(
+                layout, rows, old_starts, old_caps, new_starts, new_caps,
+                grow, rebuild_hi, self.nv, has_moves,
+            )
+        return dict(
+            rows=rows, deg_old=deg_old, grow=grow,
+            new_caps=new_caps, new_starts=new_starts,
+            groups=groups, layout=layout,
+            scatter=scatter, slot_map=slot_map, owner_patch=owner_patch,
+        )
+
+    def _commit_patch(self, prep, counts_list) -> None:
+        """Install the post-apply geometry (degrees, moved blocks)."""
+        rows, deg_old = prep["rows"], prep["deg_old"]
+        net = 0
+        for (_wv, gsel, _a), counts in zip(prep["layout"], counts_list):
+            counts = np.asarray(counts, dtype=np.int64)[: gsel.shape[0]]
+            self.degs[rows[gsel]] = counts
+            net += int(counts.sum() - deg_old[gsel].sum())
+        if prep["grow"].any():
+            self.starts[rows] = prep["new_starts"]
+            self.caps[rows] = prep["new_caps"]
+        self.live += net
+        self._blocks = None
+        STATS["patches"] += 1
+
+    def _detach_generation(self) -> None:
+        """Copy the payload a sealed generation still shares, before the
+        in-place merge writes into it."""
+        if self._cow:
+            self.dst, self.wgt, self.rows = util.fused_copy(self.dst, self.wgt, self.rows)
+            self._cow = False
+
+    def _patch_one(self, plan, backend: str) -> bool:
+        """Apply one plan to the image: one ``fused_apply``, all groups."""
+        from ..kernels.slot_update import ops as _su_ops
+
+        prep = self._plan_patch(plan)
+        if prep is None:
+            return False
+        if prep == ():
+            return True
+        self._detach_generation()
+        self.dst, self.wgt, self.rows, counts, _ = _su_ops.fused_apply(
+            self.dst, self.wgt, self.rows, prep["groups"],
+            scatter=prep["scatter"], backend=backend,
+            slot_map=prep["slot_map"], owner_patch=prep["owner_patch"],
+        )
+        STATS["dispatches"] += 1
+        self._commit_patch(prep, counts)
+        return True
 
     # ------------------------------------------------------------------
     # walking
@@ -139,10 +524,80 @@ class WalkImage:
         """k-step reverse walk over the image via the slot_walk engine.
 
         ``visits0`` may be a ``[B, num_vertices]`` stack of initial visit
-        vectors — all B walks then share each step.
+        vectors — all B walks then share each step.  Assumes the image is
+        flushed (owners call ``walk_flush`` or ``to_walk_image()`` first).
         """
         from ..kernels.slot_walk import ops as _sw_ops
 
+        STATS["dispatches"] += 1
         return _sw_ops.slot_walk_image(
             self, steps, backend=backend, normalize=normalize, visits0=visits0,
         )
+
+    def walk_flush(self, steps: int, *, backend: str = "auto",
+                   normalize: bool = False, visits0=None) -> Optional[torch.Tensor]:
+        """Flush queued plans AND walk, with one host wait (§12).
+
+        The steady-state stream round (one queued plan, then a walk) is
+        one ``fused_apply`` with the walk as its epilogue: the plan's merge
+        launches refresh the [lo, hi) geometry on the device from their
+        counts, the k walk steps are queued behind them on the patched
+        buffers, and only then does the host wait, for the counts.  Deeper
+        queues patch all but the last plan first (one apply each).
+        Returns None when the image can only be rebuilt — the owner falls
+        back to ``to_walk_image().walk(...)`` (rebuild accounting happens
+        there, in ``flush``; a failed planning pass here is side-effect
+        free).
+        """
+        from ..kernels.slot_update import ops as _su_ops
+
+        dev = self.dst.device
+        backend = util.resolve_backend(backend, dev)
+        if self.shared or self._stale:
+            return None if self._stale else self.walk(
+                steps, backend=backend, normalize=normalize, visits0=visits0,
+            )
+        nwalks = 0
+        if visits0 is not None:
+            if visits0.ndim != 2 or visits0.shape[1] != self.nv:
+                raise ValueError(
+                    "visits0 must be [num_walks, num_vertices], got "
+                    f"{tuple(visits0.shape)}"
+                )
+            nwalks = int(visits0.shape[0])
+            visits0 = torch.as_tensor(visits0, dtype=torch.float32, device=dev)
+        while len(self._pending) > 1:
+            if not self._patch_one(self._pending[0], backend):
+                return None
+            self._pending.pop(0)
+        if not self._pending:
+            return self.walk(
+                steps, backend=backend, normalize=normalize, visits0=visits0,
+            )
+        prep = self._plan_patch(self._pending[0])
+        if prep is None:
+            return None
+        if prep == ():
+            self._pending.pop(0)
+            return self.walk(
+                steps, backend=backend, normalize=normalize, visits0=visits0,
+            )
+        lo, hi = self.device_blocks()
+        self._detach_generation()
+        self.dst, self.wgt, self.rows, counts, walk_out = _su_ops.fused_apply(
+            self.dst, self.wgt, self.rows, prep["groups"],
+            scatter=prep["scatter"], backend=backend,
+            slot_map=prep["slot_map"], owner_patch=prep["owner_patch"],
+            lo=lo, hi=hi, visits0=visits0,
+            walk=(steps, self.nv, self.edges_hi(), nwalks, bool(normalize), backend),
+        )
+        STATS["dispatches"] += 1
+        self._pending.pop(0)
+        self._commit_patch(prep, counts)
+        visits, lo2, hi2 = walk_out
+        self._blocks = (lo2, hi2)  # refreshed on the device, reusable
+        if self._needs_compact():
+            # this walk already ran on the sparse image; make the NEXT
+            # access rebuild densely instead of patching further
+            self._stale = True
+        return visits

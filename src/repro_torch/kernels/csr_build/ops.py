@@ -19,6 +19,8 @@ fill) as a counting-sort build with three engines:
 ``arena_image`` builds the DiGraph slotted-arena payload (dst/wgt/
 slot_rows) straight from CSR arrays — a numpy fill and one transfer
 (``host``), or a plain PyTorch fill on the target device (``torch``).
+``flat_image`` builds the padded flat COO that SortedCOO and LazyCSR
+keep, ``pages_image_host`` ChunkedGraph's page pool.
 """
 from __future__ import annotations
 
@@ -207,4 +209,58 @@ def arena_image(offsets, dst, wgt, starts, caps, cap_e: int, cap_v: int,
         raise ValueError(f"unknown arena_image engine: {engine!r}")
     return arena_image_device(
         offsets, dst, wgt, starts, caps, cap_e, cap_v, total=total, device=dev
+    )
+
+
+# ---------------------------------------------------------------------------
+# CSR -> flat padded COO image (SortedCOO / LazyCSR base arrays)
+# ---------------------------------------------------------------------------
+def flat_image(offsets, dst, wgt, cap: int, *, device):
+    """(row_ids, dst, wgt) tensors on ``device``, padded to ``cap`` slots
+    (SENTINEL ids, zero weights): the row-major flat layout SortedCOO and
+    LazyCSR share, filled on the device."""
+    dev = torch.device(device)
+    o = torch.as_tensor(offsets).to(dev, torch.int64)
+    d = torch.as_tensor(dst).to(dev, torch.int32)
+    w = torch.as_tensor(wgt).to(dev, torch.float32)
+    m = int(d.shape[0])
+    rows = torch.full((cap,), int(SENTINEL), dtype=torch.int32, device=dev)
+    out_d = torch.full((cap,), int(SENTINEL), dtype=torch.int32, device=dev)
+    out_w = torch.zeros(cap, dtype=torch.float32, device=dev)
+    rows[:m] = util.expand_rows(o, m)
+    out_d[:m] = d
+    out_w[:m] = w
+    return rows, out_d, out_w
+
+
+# ---------------------------------------------------------------------------
+# CSR -> ChunkedGraph page image (same fill, PAGE-quantized blocks)
+# ---------------------------------------------------------------------------
+def pages_image_host(offsets, dst, wgt, page_base, npages, page: int,
+                     p_cap: int, n_sentinel: int):
+    """Page-pool image (numpy): edges land at page_base[row]*page + the
+    intra-row index; pages past the used ones are SENTINEL, owned by
+    ``n_sentinel``."""
+    o = util.host(offsets).astype(np.int64)
+    deg = np.diff(o)
+    n = deg.shape[0]
+    m = int(o[-1])
+    pages_d = np.full(p_cap * page, SENTINEL, np.int32)
+    pages_w = np.zeros(p_cap * page, np.float32)
+    owner = np.full(p_cap, n_sentinel, np.int32)
+    if m:
+        gidx = np.repeat(page_base[:n] * page, deg) + (
+            np.arange(m) - np.repeat(o[:-1], deg)
+        )
+        pages_d[gidx] = util.host(dst)[:m]
+        pages_w[gidx] = util.host(wgt)[:m]
+    total_pages = int(npages[:n].sum())
+    if total_pages:
+        owner[:total_pages] = np.repeat(
+            np.arange(n, dtype=np.int32), npages[:n].astype(np.int64)
+        )
+    return (
+        pages_d.reshape(p_cap, page),
+        pages_w.reshape(p_cap, page),
+        owner,
     )

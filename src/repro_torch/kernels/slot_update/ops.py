@@ -20,8 +20,11 @@ refreshed from the counts in the same launch.  The plain version
 Every group is read from the buffers as they were before the call (the
 groups' blocks are disjoint), then written in place: the caller owns
 ``dst``/``wgt``/``slot_rows`` (a DiGraph detaches snapshot-shared buffers
-first).  The merge counts come back to the host through one copy per
-call, the only host synchronisation of the CUDA path.
+first, a walk image copies what a sealed generation shares).  With
+``walk=`` the k-step interval walk over the patched buffers follows the
+merges (``WalkImage.walk_flush``).  The merge counts come back to the host
+through one copy per call, after everything else is queued: the only host
+synchronisation of the CUDA path.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ...core import util
+from ..slot_walk import ops as _sw_ops
 from . import kernel as _kernel
 
 SENTINEL = int(util.SENTINEL)
@@ -128,7 +132,7 @@ def host_patch_layout(layout, rows, old_starts, old_caps, new_starts,
 
 def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
                 backend: str = "auto", slot_map=None, owner_patch=None,
-                lo=None, hi=None):
+                lo=None, hi=None, walk=None, visits0=None):
     """Apply EVERY width group of a plan, writing the buffers in place.
 
     ``groups`` is ``[(width, a_pad, k, d_k, moves, operands), ...]`` with
@@ -139,17 +143,23 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
     takes the host-mapped gather rebuild (``host_patch_layout`` supplies
     ``slot_map``/``owner_patch``) over the prefix ``slot_map`` covers, so
     the SENTINEL tail past the bump pointer is never re-read.
-    ``lo``/``hi`` (the int32 [lo, hi) interval cache of the shared walk
-    image) are refreshed from the merge counts into new tensors.
+    ``lo``/``hi`` (the int32 [lo, hi) interval cache of a walk image) are
+    refreshed from the merge counts into new tensors.  ``walk=(steps, nv,
+    edges_hi, nwalks, normalize, engine)`` (with ``lo``/``hi``) runs the
+    k-step blocked walk over the patched buffers and refreshed intervals
+    behind the merges, from ``visits0`` [nwalks, nv] or, with ``nwalks``
+    0, from the all-ones vector; ``engine`` picks its tile cumsum.
 
     ``scatter`` and the rebuild operands steer the plain version only: the
     CUDA kernel always writes back in place, to the same state.
 
     Returns ``(dst, wgt, slot_rows, counts_list, extra)`` with ``extra``
-    None or the refreshed ``(lo, hi)``.
+    None, the refreshed ``(lo, hi)``, or ``(visits, lo, hi)`` with a walk.
     """
     dev = dst.device
     backend = util.resolve_backend(backend, dev)
+    if walk is not None and (lo is None or hi is None):
+        raise ValueError("fused_apply: walk= needs the image's lo/hi intervals")
     if lo is not None and hi is not None:
         lo, hi = lo.clone(), hi.clone()
         extra = (lo, hi)
@@ -161,6 +171,14 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
     else:
         counts_all = _apply_torch(dst, wgt, slot_rows, groups, lo, hi, scatter=scatter,
                                   slot_map=slot_map, owner_patch=owner_patch)
+    if walk is not None:  # queued behind the merges, before the host waits
+        steps, nv, edges_hi, nwalks, normalize, engine = walk
+        v0 = (visits0 if nwalks
+              else torch.ones((1, nv), dtype=torch.float32, device=dev))
+        visits = _sw_ops.slot_walk_multi_blocked(
+            dst, lo, hi, v0, steps, nv, edges_hi=edges_hi,
+            normalize=normalize, backend=engine)
+        extra = (visits if nwalks else visits[0], lo, hi)
 
     # one counts copy to the host, split back per group
     counts_cat = util.host(torch.cat(counts_all)) if counts_all else np.zeros(0, np.int32)

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.configs import h2o_danube_1_8b, two_tower_retrieval
-from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
+from repro_torch.core import (REPRESENTATIONS, DiGraph, csr, edgebatch, traversal, updates,
+                              util, walk_image)
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
@@ -93,10 +94,14 @@ def test_chip_smoke_fails_without_a_gpu(capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
+REPS = ["coo", "lazy", "chunked", "vector2d"]
+
+
 @pytest.mark.parametrize(
     "entry",
     ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree", "init_model",
-     "init_cache", "from_jax_params"],
+     "init_cache", "from_jax_params", "from_dense"]
+    + [f"{r}.{e}" for r in REPS for e in ("from_csr", "from_state_tree")],
 )
 def test_default_device_raises_without_gpu(entry):
     if torch.cuda.is_available():
@@ -116,9 +121,35 @@ def test_default_device_raises_without_gpu(entry):
         "init_model": lambda: tm.init_model(lm, generator=torch.Generator()),
         "init_cache": lambda: tm.init_cache(lm, 2, 16),
         "from_jax_params": lambda: tm.from_jax_params(lm_params, lm),
+        "from_dense": lambda: csr.from_dense(np.eye(3)),
     }
+    for r in REPS:
+        cls = REPRESENTATIONS[r]
+        calls[f"{r}.from_csr"] = lambda cls=cls: cls.from_csr(c)
+        calls[f"{r}.from_state_tree"] = lambda cls=cls: cls.from_state_tree(
+            cls.from_csr(c, device="cpu").state_tree())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+def test_cpu_stream_rounds_launch_no_kernel():
+    """The four representations' stream rounds (apply, then walk_flush) on
+    CPU tensors: patched images, walks of the right shape, no launches."""
+    for k in KERNELS.values():
+        k.launches = 0
+    c = synthetic.make_graph("social", scale=7, edge_factor=4, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    for name in REPS:
+        g = REPRESENTATIONS[name].from_csr(c, device="cpu")
+        g.reverse_walk(2)
+        before = walk_image.stats_snapshot()
+        g, _ = g.apply(updates.plan_update(
+            inserts=edgebatch.random_insertions(rng, c.n, 30),
+            deletes=edgebatch.random_deletions(rng, c, 30)))
+        assert g.reverse_walk(3).shape == (c.n,)
+        assert walk_image.stats_snapshot()["patches"] == before["patches"] + 1, name
+        assert g.to_walk_image().audit()["bump"] == g.to_walk_image().bump
+    assert all(k.launches == 0 for k in KERNELS.values())
 
 
 def test_backend_resolution():

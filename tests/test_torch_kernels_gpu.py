@@ -367,6 +367,100 @@ def test_digraph_cuda_matches_plain_backend(cuda):
     torch.testing.assert_close(v_k, v_p, rtol=5e-4, atol=1e-6)
 
 
+REP_NAMES = ["coo", "lazy", "chunked", "vector2d"]
+
+
+def _rep_stream(cuda, name, seed):
+    """A representation loaded on the card, its walk image built, and three
+    (delete, insert, mixed) plans for it."""
+    from repro_torch.core import REPRESENTATIONS
+
+    c = synthetic.make_graph("social", scale=11, edge_factor=8, seed=seed, device=cuda)
+    g = REPRESENTATIONS[name].from_csr(c, device=cuda)
+    g.reverse_walk(1)  # builds the image and its [lo, hi) blocks
+    rng = np.random.default_rng(seed)
+    plans = [updates.plan_update(deletes=edgebatch.random_deletions(rng, c, 600)),
+             updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 600)),
+             updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 900),
+                                 deletes=edgebatch.random_deletions(rng, c, 900))]
+    return c, g, plans
+
+
+@pytest.mark.parametrize("name", REP_NAMES)
+def test_rep_walk_flush_cuda_matches_plain(cuda, name):
+    """Each batch, then a walk_flush through the kernels and, on a twin,
+    through the plain versions: the patched images bit for bit, the walks
+    within the kernel scan's envelope."""
+    from repro_torch.core import REPRESENTATIONS
+
+    c, g, plans = _rep_stream(cuda, name, 5)
+    p = REPRESENTATIONS[name].from_csr(c, device=cuda)
+    p.reverse_walk(1)
+    for plan in plans:
+        g, _ = g.apply(plan)
+        p, _ = p.apply(plan)
+        before = {k: KERNELS[k].launches for k in ("merge_rows_fused", "tile_cumsum")}
+        v_k = g.reverse_walk(8, backend="cuda", normalize=True)
+        assert KERNELS["merge_rows_fused"].launches > before["merge_rows_fused"]
+        assert KERNELS["tile_cumsum"].launches == before["tile_cumsum"] + 8
+        v_p = p.reverse_walk(8, backend="torch", normalize=True)
+        ig, ip = g._image, p._image
+        assert (ig.bump, ig.live) == (ip.bump, ip.live)
+        for f in ("starts", "caps", "degs"):
+            np.testing.assert_array_equal(getattr(ig, f), getattr(ip, f), err_msg=f)
+        for f in ("dst", "wgt", "rows"):
+            assert torch.equal(getattr(ig, f).view(torch.int32), getattr(ip, f).view(torch.int32)), f
+        for x, y in zip(ig.device_blocks(), ip.device_blocks()):
+            assert torch.equal(x, y)
+        torch.testing.assert_close(v_k, v_p, rtol=5e-4, atol=1e-6)
+    ref = DiGraph.from_csr(c, device=cuda)
+    for plan in plans:
+        ref.apply(plan)
+    got, exp = g.to_csr(), ref.to_csr()
+    for f in ("offsets", "dst", "wgt"):
+        assert torch.equal(getattr(got, f), getattr(exp, f)), f
+
+
+@pytest.mark.parametrize("name", REP_NAMES)
+def test_rep_walk_flush_syncs_only_for_counts(cuda, name):
+    """A stream round's walk_flush waits for the device once: the merge
+    counts copy, after the walk's steps are queued."""
+    import warnings
+
+    _, g, plans = _rep_stream(cuda, name, 7)
+    g, _ = g.apply(plans[2])
+    torch.cuda.synchronize()
+    img = g._image
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            v = img.walk_flush(6)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in seen if "synchroniz" in str(w.message)]
+    assert v is not None and len(syncs) == 1, syncs
+
+
+@pytest.mark.parametrize("name", REP_NAMES)
+def test_rep_sealed_generation_survives_cuda_patch(cuda, name):
+    """A generation sealed before in-place patches on the card keeps its
+    buffers and its walk."""
+    from repro_torch.core import walk_image
+
+    _, g, plans = _rep_stream(cuda, name, 9)
+    gen = walk_image.seal_generation(g, 1)
+    bufs = [t.clone() for t in (gen.dst, gen.wgt, gen.rows)]
+    v0 = gen.walk(6, normalize=True)
+    for plan in plans:
+        g, _ = g.apply(plan)
+        g.reverse_walk(6)
+    assert g._image.dst.data_ptr() != gen.dst.data_ptr()
+    for a, b in zip((gen.dst, gen.wgt, gen.rows), bufs):
+        assert torch.equal(a, b)
+    assert torch.equal(gen.walk(6, normalize=True), v0)
+
+
 def _rows_tiles(rng, n_tiles, sink, kind):
     """[T, 128] slot owners: runs of rows, dead runs carry ``sink``."""
     if kind == "all_sink":
