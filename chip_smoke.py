@@ -51,6 +51,24 @@ SNAP's soc-LiveJournal1):
           its image audited and its sealed generation unchanged; every walk
           after the first patches (no build, no rebuild) unless one of
           repro's rebuild rules fires, which the phase prints
+  durable crash recovery at the social graph's full size: a DiGraph
+          loaded from the same CSR is wrapped in a DurableGraph (WAL and
+          differential checkpoints under build/, deleted after the phase;
+          the constructor's step-0 full checkpoint timed), then 8 rounds
+          of mixed plans (1e-2 |E| each, drawn as
+          benchmarks/bench_recovery.py draws them): rounds 1-4 through
+          apply, a differential checkpoint (timed, its persisted chunks
+          counted), rounds 5-6 through one group commit (one journal
+          flush), round 7 crashed at durable.post_append; recover on the
+          card (restore and replay timed, the replay through
+          merge_rows_fused), the audit timed alone; the recovered graph's
+          state_tree (every slot), to_csr and 42-step walk bit for bit
+          against an uncrashed twin on the card, and again after round 8
+          on both.  Then SortedCOO, LazyCSR, ChunkedGraph and Vector2D at
+          scale 16, each crashed at durable.post_apply on its 4th plan and
+          recovered on the card: to_csr and state_tree bit for bit against
+          a card twin, the walks (rebuilt image against the twin's patched
+          one) normalised at rtol 5e-4
   walk_bsr
           a road graph at scale 24 (16,777,216 vertices, ~36.9M directed
           edges, the class of SuiteSparse's asia_osm) re-blocked into
@@ -100,6 +118,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -579,6 +598,281 @@ def stream_phase(c, g, plans, vk, launches: dict, times: dict, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def same_bits(a, b) -> bool:
+    """Two numpy arrays or tensors of one dtype and shape, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+
+
+def assert_same_rep(a, b, what: str) -> None:
+    """``to_csr()`` (first: it consolidates a LazyCSR on both sides) and
+    every ``state_tree()`` array of two representations, bit for bit."""
+    ca, cb = a.to_csr(), b.to_csr()
+    for f in ("offsets", "dst", "wgt"):
+        if not same_bits(getattr(ca, f), getattr(cb, f)):
+            raise AssertionError(f"{what}: to_csr {f} differs")
+    ta, tb = a.state_tree(), b.state_tree()
+    if ta.keys() != tb.keys():
+        raise AssertionError(f"{what}: state_tree keys differ")
+    for key in ta:
+        if not same_bits(ta[key], tb[key]):
+            raise AssertionError(f"{what}: state_tree[{key!r}] differs")
+
+
+def crash_at(faultinject, point: str, call) -> None:
+    """Run ``call`` with the fault point ``point`` armed: it must raise
+    ``SimulatedCrash`` there, which is caught here and nothing else."""
+    faultinject.arm(point)
+    try:
+        call()
+    except faultinject.SimulatedCrash:
+        return
+    finally:
+        faultinject.disarm()
+    raise AssertionError(f"durable: {point} was armed but did not crash")
+
+
+def host_split(what: str, total_ms: float, call, crcs) -> dict:
+    """A checkpoint's time split by the spans of its manager call and of
+    the CRC passes inside it (host clock): the state_tree copies before the
+    call, the CRCs, and the rest of the call (npz write, chunk packing)."""
+    call_ms = sum(h_ for _, _, h_ in call) * 1e3
+    crc_ms = sum(h_ for _, _, h_ in crcs) * 1e3
+    return {f"{what}_state_tree_ms": total_ms - call_ms, f"{what}_crc_ms": crc_ms,
+            f"{what}_write_ms": call_ms - crc_ms}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def durable_phase(c, launches: dict, times: dict, dev, card: str) -> None:
+    """The durable phase (see the module docstring).  ``c`` is the social
+    CSR on the card; kernel launches add into ``launches``, times into
+    ``times``.  The journal and checkpoints live under
+    ``build/chip_smoke_durable_<pid>/``, removed on the way out whether
+    the checks pass or not."""
+    from repro_torch.core import REPRESENTATIONS, DiGraph, edgebatch, updates
+    from repro_torch.io import synthetic
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.slot_update import kernel as su_kernel
+    from repro_torch.kernels.slot_walk import kernel as sw_kernel
+    from repro_torch.runtime import durable, faultinject
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"chip_smoke_durable_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    wal, ck = os.path.join(root, "wal"), os.path.join(root, "ckpt")
+    plain_merge = ("gather_merge_torch", "merge_rows_fused_torch")
+    p0 = time.perf_counter()
+
+    def draw(csr_, rounds):
+        """bench_recovery's ``_batches``: each round, half = 1e-2 |E| // 2
+        random insertions, then as many random deletions of live edges."""
+        rng = np.random.default_rng(11)
+        half = max(int(csr_.m * 1e-2) // 2, 1)
+        return [updates.plan_update(inserts=edgebatch.random_insertions(rng, csr_.n, half),
+                                    deletes=edgebatch.random_deletions(rng, csr_, half))
+                for _ in range(rounds)]
+
+    try:
+        with count_calls(DiGraph, ("compact",)) as compactions:
+            # 1. load and wrap (an uncrashed twin from the same CSR)
+            t0 = sync_now()
+            with counted(KERNELS, launches):
+                g0 = DiGraph.from_csr(c, device=dev)
+            load_ms = sync_s(t0) * 1e3
+            twin = DiGraph.from_csr(c, device=dev)
+            t0 = time.perf_counter()
+            plans = draw(c, 8)
+            draw_s = time.perf_counter() - t0
+            mgr = durable.ckpt
+            t0 = sync_now()
+            with timed_calls(mgr, "save_arrays_sharded") as sv, \
+                    timed_calls(mgr, "_chunk_crcs") as cc:
+                dg = durable.DurableGraph(g0, wal, ck, diff=True, keep=2)
+            times["ckpt_full_ms"] = sync_s(t0) * 1e3
+            split = host_split("ckpt_full", times["ckpt_full_ms"], sv, cc)
+            full_bytes = dir_bytes(ck)
+            peak = dir_bytes(root)
+
+            # 2. rounds 1-4 through apply, then a differential checkpoint
+            apply_s, append_s = [], []
+            with timed_calls(durable.UpdateJournal, "_write_flush") as wf:
+                for plan in plans[:4]:
+                    with timed_calls(durable.UpdateJournal, "append") as ap:
+                        t0 = sync_now()
+                        with counted(KERNELS, launches):
+                            dg.apply(plan)
+                        apply_s.append(sync_s(t0))
+                    append_s.append(ap[0][2])
+                    twin.apply(plan)
+                t0 = sync_now()
+                with timed_calls(mgr, "save_arrays_diff") as sv, \
+                        timed_calls(mgr, "_chunk_crcs") as cc:
+                    path = dg.checkpoint()
+                times["ckpt_diff_ms"] = sync_s(t0) * 1e3
+                split.update(host_split("ckpt_diff", times["ckpt_diff_ms"], sv, cc))
+                with open(os.path.join(path, "manifest.json")) as f:
+                    man = json.load(f)
+                if man["kind"] != "diff" or man["base_step"] != 0:
+                    raise AssertionError(f"durable: step 4 is {man['kind']}, not a diff on step 0")
+                crcs = man["shards"]["0"]["chunks"]
+                with np.load(os.path.join(path, "shard_0.npz")) as npz:
+                    persisted = sum(npz[k].shape[0] if k.endswith("::idx") else len(crcs[k])
+                                    for k in npz.files if not k.endswith("::dat"))
+                chunks = sum(len(v_) for v_ in crcs.values())
+                diff_bytes = dir_bytes(path)
+                peak = max(peak, dir_bytes(root))
+
+                # 3. rounds 5-6 in one group commit, round 7 crashed
+                flushes = dg.journal.flushes
+                with counted(KERNELS, launches):
+                    dg.apply_group(plans[4:6])
+                if dg.journal.flushes != flushes + 1:
+                    raise AssertionError("durable: the group commit flushed "
+                                         f"{dg.journal.flushes - flushes} times")
+                crash_at(faultinject, "durable.post_append", lambda: dg.apply(plans[6]))
+                records_written = 7
+            times["wal_append_ms"] = sum(h_ for _, _, h_ in wf) * 1e3 / records_written
+            for plan in plans[4:7]:
+                twin.apply(plan)
+            peak = max(peak, dir_bytes(root))
+            dg.close()
+            del dg, g0
+            torch.cuda.empty_cache()
+
+            # 4. recover on the card (the audit timed alone)
+            st, rec_launches = {}, dict.fromkeys(KERNELS, 0)
+            with counted(KERNELS, rec_launches), count_calls(su_kernel, plain_merge) as pm, \
+                    timed_calls(mgr, "restore_arrays_diff") as rd, \
+                    timed_calls(mgr, "restore_arrays_sharded") as rb, \
+                    timed_calls(mgr, "_chunk_crcs") as cc, timed_calls(mgr, "_patch_chunks") as pt:
+                r = durable.DurableGraph.recover(wal, ck, device=dev, audit=False, stats=st,
+                                                 diff=True, keep=2)
+            torch.cuda.synchronize()
+            times["restore_ms"] = st["restore_s"] * 1e3
+            times["replay_ms"] = st["replay_s"] * 1e3
+            host_ms = lambda spans: sum(h_ for _, _, h_ in spans) * 1e3  # noqa: E731
+            split.update(restore_base_load_ms=host_ms(rb), restore_crc_gate_ms=host_ms(cc),
+                         restore_patch_ms=host_ms(pt),
+                         restore_to_device_ms=times["restore_ms"] - host_ms(rd))
+            t0 = sync_now()
+            audit = faultinject.audit(r.rep)
+            times["audit_ms"] = sync_s(t0) * 1e3
+            times["recover_ms"] = times["restore_ms"] + times["replay_ms"] + times["audit_ms"]
+            if st["records"] != 3 or r.seq != 7:
+                raise AssertionError(f"durable: replayed {st['records']} records to seq {r.seq}")
+            if rec_launches["merge_rows_fused"] == 0 or any(pm.values()):
+                raise AssertionError(f"durable: the replay launched merge_rows_fused "
+                                     f"{rec_launches['merge_rows_fused']} times, plain {pm}")
+
+            # 5. the recovered graph against the uncrashed twin
+            assert_same_rep(r.rep, twin, "durable/recovered")
+            walk_launches = dict.fromkeys(KERNELS, 0)
+            with counted(KERNELS, walk_launches), \
+                    count_calls(sw_kernel, ("tile_cumsum_torch",)) as pc:
+                vr = r.reverse_walk(WALK_STEPS)
+            vt = twin.reverse_walk(WALK_STEPS)
+            if not same_bits(vr, vt):
+                raise AssertionError("durable: the recovered walk differs from the twin's")
+            if walk_launches["tile_cumsum"] != WALK_STEPS or any(pc.values()):
+                raise AssertionError(f"durable: the walk launched tile_cumsum "
+                                     f"{walk_launches['tile_cumsum']} times, plain {pc}")
+            del vr, vt
+            with counted(KERNELS, launches):
+                r.apply(plans[7])
+            twin.apply(plans[7])
+            assert_same_rep(r.rep, twin, "durable/round 8")
+            for src_ in (rec_launches, walk_launches):
+                for k_, v_ in src_.items():
+                    launches[k_] += v_
+            ops = sum(p_.n_ops for p_ in plans[4:7])
+            share = sum(append_s) / sum(apply_s)
+            r.close()
+            del r, twin
+            torch.cuda.empty_cache()
+            say("durable", card=card, rep="digraph", n=c.n, m=c.m, rounds=8,
+                ops_per_round=plans[0].n_ops, draw_s=f"{draw_s:.1f}",
+                load_ms=f"{load_ms:.1f}",
+                ckpt_full_ms=f"{times['ckpt_full_ms']:.1f}", ckpt_full_bytes=full_bytes,
+                ckpt_diff_ms=f"{times['ckpt_diff_ms']:.1f}", ckpt_diff_bytes=diff_bytes,
+                **{k_: f"{v_:.1f}" for k_, v_ in split.items()},
+                diff_chunks_persisted=f"{persisted}/{chunks}",
+                diff_persisted_share=f"{persisted / chunks:.4f}",
+                apply_ms="/".join(f"{x_ * 1e3:.1f}" for x_ in apply_s),
+                append_ms="/".join(f"{x_ * 1e3:.1f}" for x_ in append_s),
+                append_share=f"{share:.4f}", wal_append_ms=f"{times['wal_append_ms']:.3f}",
+                group_flushes=1, crash="durable.post_append at round 7",
+                records=st["records"], restore_ms=f"{times['restore_ms']:.1f}",
+                replay_ms=f"{times['replay_ms']:.1f}",
+                replayed_ops_per_s=f"{ops / st['replay_s']:.0f}",
+                audit_ms=f"{times['audit_ms']:.1f}", audit_blocks=audit["blocks"],
+                recover_ms=f"{times['recover_ms']:.1f}",
+                replay_merge_launches=rec_launches["merge_rows_fused"],
+                walk_tile_cumsum_launches=walk_launches["tile_cumsum"], plain_calls=0,
+                state_tree="every slot bit-identical to the twin", to_csr="bit-identical",
+                walk="42 steps bit-identical", round_8="bit-identical",
+                peak_bytes=peak)
+
+            # 6. the other four representations at scale 16
+            c16 = synthetic.make_graph("social", scale=16, edge_factor=EDGE_FACTOR, seed=SEED,
+                                       device=dev)
+            plans16 = draw(c16, 4)
+            for name in ("coo", "lazy", "chunked", "vector2d"):
+                cls = REPRESENTATIONS[name]
+                d_ = os.path.join(root, name)
+                tw = cls.from_csr(c16, device=dev)
+                tw.reverse_walk(1)  # the twin's image, patched by every later walk
+                with counted(KERNELS, launches):
+                    dgx = durable.DurableGraph(cls.from_csr(c16, device=dev),
+                                               os.path.join(d_, "wal"), os.path.join(d_, "ckpt"))
+                    for plan in plans16[:3]:
+                        dgx.apply(plan)
+                for plan in plans16:
+                    tw, _ = tw.apply(plan)
+                    tw.reverse_walk(1)
+                with counted(KERNELS, launches):
+                    crash_at(faultinject, "durable.post_apply", lambda: dgx.apply(plans16[3]))
+                dgx.close()
+                del dgx
+                st = {}
+                t0 = sync_now()
+                with counted(KERNELS, launches):
+                    rx = durable.DurableGraph.recover(os.path.join(d_, "wal"),
+                                                      os.path.join(d_, "ckpt"),
+                                                      device=dev, stats=st)
+                rec_ms = sync_s(t0) * 1e3
+                if st["records"] != 4:
+                    raise AssertionError(f"durable/{name}: replayed {st['records']} records")
+                assert_same_rep(rx.rep, tw, f"durable/{name}")
+                with counted(KERNELS, launches):
+                    vx = rx.reverse_walk(WALK_STEPS, normalize=True)
+                torch.testing.assert_close(vx, tw.reverse_walk(WALK_STEPS, normalize=True),
+                                           rtol=WALK_RTOL, atol=WALK_ATOL)
+                peak = max(peak, dir_bytes(root))
+                rx.close()
+                say("durable", card=card, rep=name, scale=16, n=c16.n, m=c16.m,
+                    crash="durable.post_apply at plan 4", records=st["records"],
+                    recover_ms=f"{rec_ms:.1f}", restore_ms=f"{st['restore_s'] * 1e3:.1f}",
+                    replay_ms=f"{st['replay_s'] * 1e3:.1f}",
+                    to_csr_and_state_tree="bit-identical to the card twin",
+                    walk="normalised, rtol 5e-4 (rebuilt vs patched image)")
+                del rx, tw, vx
+            del c16
+            torch.cuda.empty_cache()
+        say("durable", card=card, digraph_compactions=compactions["compact"],
+            peak_bytes=peak, phase_s=f"{time.perf_counter() - p0:.1f}")
+    finally:
+        faultinject.disarm()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -887,6 +1181,11 @@ def main() -> None:
     p0 = time.perf_counter()
     stream_phase(c, g, plans, vk, launches, times, dev)
     phase_s["stream_s"] = time.perf_counter() - p0
+
+    # 7c. durable (WAL, checkpoints, crash recovery on the card) ----------
+    p0 = time.perf_counter()
+    durable_phase(c, launches, times, dev, smi)
+    phase_s["durable_s"] = time.perf_counter() - p0
 
     # 8. walk_bsr (paper task 4 as iterated block-sparse SpMM) ------------
     p0 = t0 = sync_now()

@@ -173,7 +173,9 @@ class WalkImage:
         block's row and rows stay strictly ascending, slack slots are
         SENTINEL (the merge reads on it — a non-SENTINEL slack slot would
         resurrect a ghost edge on the next patch), and the per-row degrees
-        account for exactly ``self.live`` edges.
+        account for exactly ``self.live`` edges.  The geometry is checked
+        on the host (where it lives), the payload with reductions on the
+        image's device.
         """
         from ..runtime import faultinject as _fi
 
@@ -208,36 +210,35 @@ class WalkImage:
         m = int(degs.sum())
         chk(m == int(self.live), f"degree sum {m} != image live {int(self.live)}")
         n_blocks = int(blocked.sum())
-        d = util.host(self.dst)
+        dev = self.dst.device
+
+        def run_index(base: np.ndarray, lens: np.ndarray, total: int):
+            """Slot index of each element of the runs [base, base + lens)."""
+            b = torch.from_numpy(base).to(dev)
+            ln = torch.from_numpy(lens).to(dev)
+            shift = torch.repeat_interleave(b - (torch.cumsum(ln, 0) - ln), ln,
+                                            output_size=total)
+            return shift + torch.arange(total, dtype=torch.int64, device=dev), ln
+
         if m:
-            w = util.host(self.wgt)
-            r = util.host(self.rows)
-            first = np.cumsum(degs) - degs
-            gidx = np.repeat(starts, degs) + (
-                np.arange(m, dtype=np.int64) - np.repeat(first, degs)
-            )
-            owner = np.repeat(np.arange(nv, dtype=np.int64), degs)
-            dl, wl, rl = d[gidx], w[gidx], r[gidx]
-            chk(not bool((dl == SENTINEL).any()), "SENTINEL inside a live prefix")
-            chk(
-                bool((dl >= 0).all()) and bool((dl < nv).all()),
-                "image dst id out of [0, nv)",
-            )
+            gidx, degs_d = run_index(starts, degs, m)
+            owner = torch.repeat_interleave(
+                torch.arange(nv, dtype=torch.int64, device=dev), degs_d, output_size=m)
+            dl, wl, rl = self.dst[gidx], self.wgt[gidx], self.rows[gidx]
+            chk(not bool((dl == int(SENTINEL)).any()), "SENTINEL inside a live prefix")
+            chk(bool(((dl >= 0) & (dl < nv)).all()), "image dst id out of [0, nv)")
             chk(bool((rl == owner).all()), "live slot owned by the wrong row")
-            chk(bool(np.isfinite(wl).all()), "non-finite live image weight")
+            chk(bool(torch.isfinite(wl).all()), "non-finite live image weight")
             interior = owner[1:] == owner[:-1]
             chk(
                 not bool((interior & (dl[1:] <= dl[:-1])).any()),
                 "image row not strictly ascending",
             )
+            del gidx, owner, dl, wl, rl, interior
         slack = caps - degs
         if int(slack.sum()):
-            sfirst = np.cumsum(slack) - slack
-            sidx = np.repeat(starts + degs, slack) + (
-                np.arange(int(slack.sum()), dtype=np.int64)
-                - np.repeat(sfirst, slack)
-            )
-            chk(bool((d[sidx] == SENTINEL).all()), "non-SENTINEL slack slot")
+            sidx, _ = run_index(starts + degs, slack, int(slack.sum()))
+            chk(bool((self.dst[sidx] == int(SENTINEL)).all()), "non-SENTINEL slack slot")
         return {
             "blocks": n_blocks,
             "bump": bump,

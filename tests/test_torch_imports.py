@@ -32,6 +32,7 @@ from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
 from repro_torch.models.recsys import two_tower
 from repro_torch.models.transformer import model as tm
+from repro_torch.runtime import durable
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
@@ -57,8 +58,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("module", ["repro_torch.io.mtx", "repro_torch.io._cparse"])
-def test_file_loader_imports_neither_jax_nor_repro(module):
+def _imports_alone(module):
+    """Import ``module`` alone in a fresh process; fail on jax or repro."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -71,6 +72,18 @@ def test_file_loader_imports_neither_jax_nor_repro(module):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.io.mtx", "repro_torch.io._cparse"])
+def test_file_loader_imports_neither_jax_nor_repro(module):
+    _imports_alone(module)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.runtime.durable",
+                                    "repro_torch.checkpoint.manager",
+                                    "repro_torch.runtime.faultinject"])
+def test_durability_imports_neither_jax_nor_repro(module):
+    _imports_alone(module)
+
+
 def test_chip_smoke_imports_only_the_port():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -80,7 +93,7 @@ def test_chip_smoke_imports_only_the_port():
             mods.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module.split(".")[0])
-    assert mods <= {"contextlib", "dataclasses", "json", "os", "subprocess", "sys", "time",
+    assert mods <= {"contextlib", "dataclasses", "json", "os", "shutil", "subprocess", "sys", "time",
                     "numpy", "torch", "repro_torch"}, mods
 
 
@@ -100,7 +113,7 @@ REPS = ["coo", "lazy", "chunked", "vector2d"]
 @pytest.mark.parametrize(
     "entry",
     ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree", "init_model",
-     "init_cache", "from_jax_params", "from_dense"]
+     "init_cache", "from_jax_params", "from_dense", "recover"]
     + [f"{r}.{e}" for r in REPS for e in ("from_csr", "from_state_tree")],
 )
 def test_default_device_raises_without_gpu(entry):
@@ -122,6 +135,8 @@ def test_default_device_raises_without_gpu(entry):
         "init_cache": lambda: tm.init_cache(lm, 2, 16),
         "from_jax_params": lambda: tm.from_jax_params(lm_params, lm),
         "from_dense": lambda: csr.from_dense(np.eye(3)),
+        # raises before it reads a directory
+        "recover": lambda: durable.DurableGraph.recover("no-wal", "no-ckpt"),
     }
     for r in REPS:
         cls = REPRESENTATIONS[r]

@@ -923,3 +923,116 @@ def test_transformer_cuda_matches_plain(cuda):
     assert KERNELS["flash_attention"].launches == before + cfg.n_layers
     exp, _ = m.with_backend("torch")(toks)
     torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4)
+
+
+# -- durability on the card (-k durable) -------------------------------------
+DURABLE_REPS = ["digraph", "coo", "lazy", "chunked", "vector2d"]
+CRASH_POINTS = ("durable.pre_append", "durable.post_append", "durable.post_apply")
+
+
+@pytest.fixture
+def port_faults():
+    """The port's fault-point registry, disarmed around the test; a test
+    that leaks an armed point fails."""
+    from repro_torch.runtime import faultinject
+
+    faultinject.disarm()
+    yield faultinject
+    leaked = faultinject.armed()
+    faultinject.disarm()
+    assert not leaked, f"test leaked armed port faultinject points: {leaked}"
+
+
+def _durable_stream(cuda, tmp_path, name, point, faults, kcrash=2, n_plans=4):
+    """A durable ``name`` on the card driven into a crash at ``point`` on
+    plan ``kcrash`` (a differential checkpoint after plan 0).  Returns the
+    journal and checkpoint directories, the base CSR, the plans and how
+    many of them the uncrashed twin applies."""
+    from repro_torch.core import REPRESENTATIONS
+    from repro_torch.runtime import durable
+
+    c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=13, device=cuda)
+    rng = np.random.default_rng(13)
+    plans = [updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 300),
+                                 deletes=edgebatch.random_deletions(rng, c, 300))
+             for _ in range(n_plans)]
+    wal, ck = str(tmp_path / "wal"), str(tmp_path / "ckpt")
+    g = durable.DurableGraph(REPRESENTATIONS[name].from_csr(c, device=cuda), wal, ck,
+                             diff=True)
+    g.apply(plans[0])
+    g.checkpoint()
+    for plan in plans[1:kcrash]:
+        g.apply(plan)
+    with faults.injected(point):
+        with pytest.raises(faults.SimulatedCrash):
+            g.apply(plans[kcrash])
+    g.close()
+    return wal, ck, c, plans, kcrash if point == "durable.pre_append" else kcrash + 1
+
+
+@pytest.mark.parametrize("point", CRASH_POINTS)
+@pytest.mark.parametrize("name", DURABLE_REPS)
+def test_durable_crash_recovery_on_card(cuda, tmp_path, port_faults, name, point):
+    """Recovered on the card, bit for bit against a card twin (every
+    state_tree slot: both ran the same device path), the replay through
+    the row-merge kernel and the walk within the kernels' envelope."""
+    from repro_torch.core import REPRESENTATIONS
+    from repro_torch.runtime import durable
+
+    wal, ck, c, plans, upto = _durable_stream(cuda, tmp_path, name, point, port_faults)
+    twin = REPRESENTATIONS[name].from_csr(c, device=cuda)
+    for plan in plans[:upto]:
+        twin, _ = twin.apply(plan)
+    st = {}
+    r = durable.DurableGraph.recover(wal, ck, stats=st, device=cuda)
+    assert st["records"] == upto - 1
+    got, exp = r.to_csr(), twin.to_csr()
+    assert got.dst.device == exp.dst.device
+    for f in ("offsets", "dst", "wgt"):
+        assert torch.equal(getattr(got, f), getattr(exp, f)), f
+    a, b = r.rep.state_tree(), twin.state_tree()
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    torch.testing.assert_close(r.reverse_walk(6, normalize=True),
+                               twin.reverse_walk(6, normalize=True), rtol=5e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", DURABLE_REPS)
+def test_durable_card_journal_recovers_on_cpu(cuda, tmp_path, port_faults, name):
+    """A journal and checkpoints written on the card recover on the CPU:
+    the same edges and weights (to_csr), though dead slots may differ."""
+    from repro_torch.core import REPRESENTATIONS
+    from repro_torch.runtime import durable
+
+    wal, ck, c, plans, upto = _durable_stream(cuda, tmp_path, name, "durable.post_append",
+                                              port_faults)
+    twin = REPRESENTATIONS[name].from_csr(c, device=cuda)
+    for plan in plans[:upto]:
+        twin, _ = twin.apply(plan)
+    r = durable.DurableGraph.recover(wal, ck, device="cpu")
+    got, exp = r.to_csr(), twin.to_csr()
+    assert got.dst.device.type == "cpu"
+    for f in ("offsets", "dst", "wgt"):
+        assert torch.equal(getattr(got, f), getattr(exp, f).cpu()), f
+
+
+@pytest.mark.parametrize("kind", ["wgt_flip", "degs"])
+def test_durable_audit_catches_corruption_on_card(cuda, port_faults, kind):
+    """The audit's device reductions catch a flipped live weight and a
+    corrupted image geometry of a CUDA representation."""
+    from repro_torch.core import REPRESENTATIONS
+
+    c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=17, device=cuda)
+    g = REPRESENTATIONS["coo"].from_csr(c, device=cuda)
+    assert port_faults.audit(g)["m"] == c.m
+    img = g.to_walk_image()
+    row = int(np.nonzero((img.degs > 0) & (img.caps > img.degs))[0][0])
+    if kind == "wgt_flip":
+        img.wgt[int(img.starts[row])] += 1.0
+        msg = "image wgt payload != csr wgt"
+    else:
+        img.degs[row] += 1
+        msg = "degree sum"
+    with pytest.raises(port_faults.AuditError, match=msg):
+        port_faults.audit(g)
