@@ -69,6 +69,24 @@ SNAP's soc-LiveJournal1):
           recovered on the card: to_csr and state_tree bit for bit against
           a card twin, the walks (rebuilt image against the twin's patched
           one) normalised at rtol 5e-4
+  serve   walk serving on the card (runtime/serve.py's WalkServer, one
+          writer and one dispatcher thread on the default stream) over
+          clones of the update phase's DiGraph, with
+          benchmarks/bench_serve.py's knobs and warm-up (4-step walks from
+          4 seeds, an update of 256 every 10 requests, every 4th a
+          deletion batch, seed 13, batches of at most 16): steady (240
+          requests 2 ms apart, queue 256), overload (480 open loop,
+          deadline 0.25 s, queue 32), fault (slot_walk.cuda armed twice:
+          served by retries on the same backend), a persistent
+          slot_walk.cuda fault (the ticket fails visibly) and serve.seal
+          armed once (a reader served the previous generation while the
+          writer waits to retry; the writer's apply copied before writing).
+          Each level holds the zero-lost ledger and checks a 25% sample of
+          its served walks (every one for the last two) against the card's
+          GenerationOracle at their own generations; no plain tile cumsum
+          runs.  Latency percentiles, throughput, the seal's host time and
+          the update acks are timed; one B = 16 batch is timed by CUDA
+          events, and its batched tile_cumsum held against the plain one
   walk_bsr
           a road graph at scale 24 (16,777,216 vertices, ~36.9M directed
           edges, the class of SuiteSparse's asia_osm) re-blocked into
@@ -195,6 +213,20 @@ LM_CHECK_TOL = 1e-3
 LM_BF16_RMS_RATIO = 1.10
 #: greedy decode steps timed after a warm-up step
 DECODE_STEPS = 8
+#: the serve phase: benchmarks/bench_serve.py's knobs (walk steps, seeds a
+#: request, an update batch of 256 every 10 requests, every 4th a deletion
+#: batch, traffic seed 13, verify seed 7, a 25% verified sample, batches of
+#: at most 16) and its load levels
+SERVE_STEPS, SERVE_SEEDS, SERVE_UPDATE_EVERY, SERVE_UPDATE_SIZE = 4, 4, 10, 256
+SERVE_SEED, SERVE_VERIFY_SEED, SERVE_VERIFY, SERVE_BATCH = 13, 7, 0.25, 16
+SERVE_LEVELS = {
+    "steady": dict(requests=240, submit_gap_s=0.002, timeout=None, max_queue=256),
+    "overload": dict(requests=480, submit_gap_s=0.0, timeout=0.25, max_queue=32),
+    "fault": dict(requests=120, submit_gap_s=0.0, timeout=None, max_queue=256),
+}
+#: the seal level's writer pause after a failed seal: the window in which a
+#: reader must be served the previous generation
+SERVE_SEAL_BACKOFF_S = 0.5
 #: prefill against decode: prompt length, batch and the tolerance of
 #: repro's own check (tests/test_models.py:46; the bfloat16 cache rounds
 #: K and V that forward keeps in float32)
@@ -873,6 +905,231 @@ def durable_phase(c, launches: dict, times: dict, dev, card: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def serve_phase(g, launches: dict, times: dict, dev, card: str) -> None:
+    """The serve phase (see the module docstring).  ``g`` is the social
+    DiGraph on the card; every level serves a clone of it, so ``g`` stays
+    as it was.  Kernel launches add into ``launches``, times into
+    ``times``."""
+    from repro_torch.core import edgebatch, updates, walk_image
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.slot_walk import kernel as sw_kernel
+    from repro_torch.kernels.slot_walk import ops as sw_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.runtime import faultinject
+    from repro_torch.runtime import serve as serve_mod
+
+    p0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = g.to_csr()  # generation 0 of every level
+    nv = int(base.n)
+    phase_launches = dict.fromkeys(KERNELS, 0)
+
+    def check_level(name, srv, walks, upds, *, verify=SERVE_VERIFY):
+        """The zero-lost ledger, then the sampled walks against the card
+        oracle at their own generations; -> (stats, torn, checked)."""
+        stats = srv.assert_no_lost()
+        torn, checked = launch_serve.count_torn_reads(
+            launch_serve.GenerationOracle(base), walks, upds, sample=verify,
+            seed=SERVE_VERIFY_SEED)
+        if torn or not checked:
+            raise AssertionError(f"serve/{name}: {torn} torn reads of {checked} checked")
+        return stats, torn, checked
+
+    def level(name, *, requests, submit_gap_s, timeout, max_queue, fault=None):
+        """bench_serve's ``_serve_row`` on a clone of ``g``: warm-up (3
+        insertion updates, a batch of walks), then the traffic."""
+        srv = serve_mod.WalkServer(g.clone(), max_queue=max_queue, batch_max=SERVE_BATCH,
+                                   default_timeout=timeout).start()
+        try:
+            wrng = np.random.default_rng(99)
+            warm_upds = []
+            for _ in range(3):
+                plan = updates.plan_update(
+                    inserts=edgebatch.random_insertions(wrng, nv, SERVE_UPDATE_SIZE))
+                warm_upds.append((srv.submit_update(plan), plan))
+            warm = [srv.submit_walk([1, 2], steps=SERVE_STEPS) for _ in range(SERVE_BATCH)]
+            for t in [u for u, _ in warm_upds] + warm:
+                if not t.wait(120.0):
+                    raise AssertionError(f"serve/{name}: a warm-up ticket is still pending")
+            if fault:
+                faultinject.arm(fault, times=2)
+            t0 = time.monotonic()
+            walks, upds = launch_serve.run_traffic(
+                srv, nv, requests=requests, steps=SERVE_STEPS,
+                seeds_per_request=SERVE_SEEDS, update_every=SERVE_UPDATE_EVERY,
+                update_size=SERVE_UPDATE_SIZE, seed=SERVE_SEED, submit_gap_s=submit_gap_s,
+                timeout=timeout)
+            for t in walks:
+                if not t.wait(120.0):
+                    raise AssertionError(f"serve/{name}: a walk ticket is still pending")
+            wall = time.monotonic() - t0
+            fired = faultinject.fired(fault) if fault else 0
+        finally:
+            srv.stop(timeout=120.0)
+            faultinject.disarm()
+        stats, torn, checked = check_level(name, srv, warm + walks, warm_upds + upds)
+        served = [t for t in walks if t.status == serve_mod.SERVED]
+        pct = launch_serve.percentiles([t.latency_s for t in served])
+        acks = [u.resolved_at - u.submitted_at for u, _ in upds if u.status == serve_mod.SERVED]
+        ack = launch_serve.percentiles(acks)
+        say("serve", card=card, level=name, requests=requests, served=len(served),
+            submitted=stats["submitted"], shed_expired=stats["shed_expired"],
+            rejected=stats["rejected_backpressure"] + stats["rejected_other"],
+            failed=stats["failed"], lost=0, batches=stats["batches"],
+            max_batch=stats["max_batch"], seals=stats["seals"],
+            updates=stats["updates_applied"], dispatch_retries=stats["dispatch_retries"],
+            breaker_fallbacks=stats["breaker_fallbacks"], fault=fault or "none",
+            fired=fired, **{k_: f"{v_:.2f}" for k_, v_ in pct.items()},
+            ack_p50_ms=f"{ack['p50_ms']:.2f}", ack_p99_ms=f"{ack['p99_ms']:.2f}",
+            req_per_s=f"{len(served) / wall:.1f}", wall_s=f"{wall:.2f}",
+            torn_reads=torn, torn_checked=checked)
+        return srv, stats, served, pct, ack, wall
+
+    try:
+        with count_calls(sw_kernel, ("tile_cumsum_torch",)) as plain, \
+                counted(KERNELS, phase_launches), \
+                timed_calls(walk_image, "seal_generation") as seals:
+            srv, _, served, pct, ack, wall = level("steady", **SERVE_LEVELS["steady"])
+            times["walk_serve_p50_ms"] = pct["p50_ms"]
+            times["walk_serve_p99_ms"] = pct["p99_ms"]
+            times["walk_serve_req_per_s"] = len(served) / wall
+            times["walk_serve_ack_p99_ms"] = ack["p99_ms"]
+            seal_ms = [h_ * 1e3 for _, _, h_ in seals]
+            times["walk_serve_seal_ms"] = float(np.median(seal_ms))
+            gen_img = srv.generation.image
+            del srv, served
+
+            _, _, _, pct, _, _ = level("overload", **SERVE_LEVELS["overload"])
+            times["walk_serve_overload_p99_ms"] = pct["p99_ms"]
+
+            _, stats, _, _, _, _ = level("fault", fault="slot_walk.cuda",
+                                         **SERVE_LEVELS["fault"])
+            if stats["dispatch_retries"] < 1 or stats["failed"]:
+                raise AssertionError(f"serve/fault: {stats['dispatch_retries']} retries, "
+                                     f"{stats['failed']} failed")
+
+            # a persistent kernel-site fault: the ticket fails visibly, and
+            # the server serves again once the fault clears
+            srv = serve_mod.WalkServer(g.clone(), batch_max=SERVE_BATCH).start()
+            try:
+                faultinject.arm("slot_walk.cuda", times=10**6)
+                dead = srv.submit_walk([1, 2, 3, 4], steps=SERVE_STEPS)
+                if not dead.wait(120.0):
+                    raise AssertionError("serve/persistent: the ticket is still pending")
+                fired = faultinject.fired("slot_walk.cuda")
+                faultinject.disarm()
+                alive = srv.submit_walk([1, 2, 3, 4], steps=SERVE_STEPS)
+                if not alive.wait(120.0):
+                    raise AssertionError("serve/persistent: the later ticket is still pending")
+            finally:
+                srv.stop(timeout=120.0)
+                faultinject.disarm()
+            stats, torn, checked = check_level("persistent", srv, [dead, alive], [],
+                                               verify=1.0)
+            if dead.status != serve_mod.FAILED or alive.status != serve_mod.SERVED \
+                    or stats["failed"] != 1 or fired != srv.dispatch_retries + 1:
+                raise AssertionError(f"serve/persistent: {dead.status}, {alive.status}, "
+                                     f"{stats['failed']} failed, fired {fired}")
+            say("serve", card=card, level="persistent", fault="slot_walk.cuda",
+                fired=fired, dead=dead.status, error=type(dead.error).__name__,
+                later=alive.status, failed=stats["failed"],
+                dispatch_retries=stats["dispatch_retries"], torn_reads=torn,
+                torn_checked=checked)
+
+            # serve.seal armed once: while the writer waits to retry the
+            # seal, a reader is served the previous generation, which the
+            # writer's apply copied before it wrote (copy-on-write)
+            rep = g.clone()
+            srv = serve_mod.WalkServer(rep, batch_max=SERVE_BATCH,
+                                       retry_backoff=SERVE_SEAL_BACKOFF_S).start()
+            seeds = [1, 2, 3, 4]
+            srng = np.random.default_rng(SERVE_SEED)
+            plan = updates.plan_update(inserts=edgebatch.from_arrays(  # edges into the seeds
+                srng.integers(0, nv, SERVE_UPDATE_SIZE), np.resize(seeds, SERVE_UPDATE_SIZE)))
+            gen0 = srv.generation
+            sums0 = [checksum(t_) for t_ in (gen0.image.dst, gen0.image.wgt)]
+            try:
+                faultinject.arm("serve.seal", times=1)
+                ut = srv.submit_update(plan)
+                deadline = time.monotonic() + 60.0
+                while srv.stats()["seal_failures"] < 1 and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                before = srv.submit_walk(seeds, steps=SERVE_STEPS)
+                if not before.wait(60.0) or not ut.wait(60.0):
+                    raise AssertionError("serve/seal: a ticket is still pending")
+                after = srv.submit_walk(seeds, steps=SERVE_STEPS)
+                if not after.wait(60.0):
+                    raise AssertionError("serve/seal: a ticket is still pending")
+            finally:
+                srv.stop(timeout=120.0)
+                faultinject.disarm()
+            stats, torn, checked = check_level("seal", srv, [before, after], [(ut, plan)],
+                                               verify=1.0)
+            copied = gen0.image.dst.data_ptr() != rep.dst.data_ptr()
+            unchanged = sums0 == [checksum(t_) for t_ in (gen0.image.dst, gen0.image.wgt)]
+            if (stats["seal_failures"] < 1 or (before.generation, ut.generation,
+                                              after.generation) != (0, 1, 1)
+                    or before.resolved_at >= ut.resolved_at or not copied or not unchanged
+                    or torch.equal(before.visits, after.visits)):
+                raise AssertionError(
+                    f"serve/seal: failures {stats['seal_failures']}, generations "
+                    f"{before.generation}/{ut.generation}/{after.generation}, "
+                    f"copied {copied}, generation 0 unchanged {unchanged}")
+            say("serve", card=card, level="seal", fault="serve.seal", times=1,
+                seal_failures=stats["seal_failures"], reader_generation=before.generation,
+                update_ack_generation=ut.generation, later_generation=after.generation,
+                writer_copied_before_writing=copied, generation0_checksums="unchanged",
+                torn_reads=torn, torn_checked=checked)
+            del rep, srv, gen0
+        if plain["tile_cumsum_torch"]:
+            raise AssertionError(f"serve: the plain tile cumsum ran {plain} times")
+        for k_ in ("tile_cumsum", "merge_rows_fused"):
+            if phase_launches[k_] == 0:
+                raise AssertionError(f"serve: {k_} never launched")
+        for k_, v_ in phase_launches.items():
+            launches[k_] += v_
+        serving_peak = torch.cuda.max_memory_allocated()
+
+        # one B = 16 batch on the steady level's last generation, and the
+        # batched tile_cumsum it launches, against its plain version
+        srng = np.random.default_rng(SERVE_VERIFY_SEED)
+        v0 = torch.stack([launch_serve.seed_visits_row(nv, srng.integers(0, nv, SERVE_SEEDS),
+                                                       device=dev)
+                          for _ in range(SERVE_BATCH)])
+        times["walk_serve_batch_event_ms"] = time_ms(
+            lambda: gen_img.walk(SERVE_STEPS, visits0=v0), reps=5)
+        gidx = sw_ops._prep_gidx(gen_img.dst, nv, gen_img.edges_hi())
+        vals = torch.cat([v0, v0.new_zeros(SERVE_BATCH, 1)], 1).index_select(
+            1, gidx.reshape(-1)).reshape(-1, sw_kernel.EB)
+        del gidx
+        got = sw_kernel.tile_cumsum(vals)
+        ref = sw_kernel.tile_cumsum_torch(vals)
+        err = (got - ref).abs()
+        if not bool((err <= 1e-5 * ref.abs() + 1e-6 * ref.abs().amax(dim=1, keepdim=True)).all()):
+            raise AssertionError("serve: batched tile_cumsum disagrees with its plain version")
+        max_err = float(err.max())
+        del got, ref, err
+        nbytes = vals.numel() * 4 * 2
+        cum = dict(ms=time_ms(lambda: sw_kernel.tile_cumsum(vals), reps=10),
+                   plain_ms=time_ms(lambda: sw_kernel.tile_cumsum_torch(vals), reps=3),
+                   library_ms=time_ms(lambda: torch.cumsum(vals, dim=-1), reps=3),
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        say("serve", card=card, batched_tile_cumsum=f"[{vals.shape[0]},{vals.shape[1]}]",
+            bytes=nbytes, max_abs_err=max_err, tolerance="rtol 1e-5, atol 1e-6*tile max",
+            **{k_: f"{v_:.4f}" for k_, v_ in cum.items()},
+            batch_event_ms=f"{times['walk_serve_batch_event_ms']:.4f}")
+        del vals, v0, gen_img
+        torch.cuda.empty_cache()
+        say("serve", card=card, steady_seals=len(seal_ms),
+            seal_ms="/".join(f"{x_:.1f}" for x_ in seal_ms),
+            launches="/".join(f"{k_}={v_}" for k_, v_ in phase_launches.items() if v_),
+            plain_tile_cumsum_calls=0, serving_peak_gb=f"{serving_peak / 1e9:.2f}",
+            phase_peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            phase_s=f"{time.perf_counter() - p0:.1f}")
+    finally:
+        faultinject.disarm()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -1186,6 +1443,11 @@ def main() -> None:
     p0 = time.perf_counter()
     durable_phase(c, launches, times, dev, smi)
     phase_s["durable_s"] = time.perf_counter() - p0
+
+    # 7d. serve (WalkServer over sealed generations, on the card) ---------
+    p0 = time.perf_counter()
+    serve_phase(g, launches, times, dev, smi)
+    phase_s["serve_s"] = time.perf_counter() - p0
 
     # 8. walk_bsr (paper task 4 as iterated block-sparse SpMM) ------------
     p0 = t0 = sync_now()

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from . import util
+
 BITS = 32
 _LOW32 = 0xFFFFFFFF
 
@@ -24,10 +26,11 @@ def _unsigned(bits: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int64) & _LOW32
 
 
-def make(capacity: int, *, device="cpu") -> torch.Tensor:
-    """Zeroed bitset able to hold ``capacity`` flags."""
+def make(capacity: int, *, device="cuda") -> torch.Tensor:
+    """Zeroed bitset able to hold ``capacity`` flags, on ``device``."""
     words = -(-int(capacity) // BITS)
-    return torch.zeros(max(words, 1), dtype=torch.int32, device=device)
+    return torch.zeros(max(words, 1), dtype=torch.int32,
+                       device=util.resolve_device(device))
 
 
 def capacity(bits: torch.Tensor) -> int:

@@ -6,7 +6,9 @@ together) and linked into one shared library with a plain C interface,
 loaded through ``ctypes``.  The build runs at the first CUDA launch of the
 process, goes into ``build/`` at the root of the checkout, and is keyed by
 a hash of the sources, headers and flags, so a fresh checkout builds once
-and an edited source rebuilds.
+and an edited source rebuilds.  One lock serialises the first build and
+load, so two threads that launch their first kernels together (a serving
+writer and dispatcher) build once, in one temporary directory.
 
 Each C entry point launches on the caller's stream, allocates nothing, and
 returns ``cudaGetLastError()``; ``check`` turns a non-zero status into an
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -97,9 +100,17 @@ def _compile(sources, lib_path: Path) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-@functools.cache
+_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from ``csrc/`` on first use."""
+    with _LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
     lib_path = BUILD_DIR / f"kernels-{_digest(sources + headers)}" / LIB_NAME

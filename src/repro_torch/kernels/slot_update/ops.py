@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ...core import util
+from ...runtime import faultinject
 from ..slot_walk import ops as _sw_ops
 from . import kernel as _kernel
 
@@ -153,11 +154,17 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
     ``scatter`` and the rebuild operands steer the plain version only: the
     CUDA kernel always writes back in place, to the same state.
 
+    The fault point ``slot_update.<backend>`` fires once, before the one
+    attempt and before any operand is touched; an injected failure raises
+    to the caller (no retry, no other backend).  The walk epilogue fires no
+    ``slot_walk`` point, as in ``repro``.
+
     Returns ``(dst, wgt, slot_rows, counts_list, extra)`` with ``extra``
     None, the refreshed ``(lo, hi)``, or ``(visits, lo, hi)`` with a walk.
     """
     dev = dst.device
     backend = util.resolve_backend(backend, dev)
+    faultinject.fire(f"slot_update.{backend}")
     if walk is not None and (lo is None or hi is None):
         raise ValueError("fused_apply: walk= needs the image's lo/hi intervals")
     if lo is not None and hi is not None:

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ...core import util
+from ...runtime import faultinject
 from . import kernel as _kernel
 
 SENTINEL = int(util.SENTINEL)
@@ -267,11 +268,16 @@ def slot_walk(dst, slot_rows, steps: int, num_vertices: int, *,
     for blockless rows) the walk takes the blocked prefix-sum step;
     without them the rank-tile step (``slot_walk_partials``).  ``visits0``
     [B, num_vertices] walks B vectors together and returns [B, V].
+
+    The fault point ``slot_walk.<backend>`` fires once, before the one
+    attempt: an injected failure raises to the caller, with no retry and no
+    other backend (``repro`` runs this site through its breaker chain).
     """
     if edges_hi is None:
         edges_hi = dst.shape[0]
     edges_hi = min(int(edges_hi), dst.shape[0])
     backend = util.resolve_backend(backend, dst.device)
+    faultinject.fire(f"slot_walk.{backend}")
     if visits0 is not None:
         if visits0.ndim != 2 or visits0.shape[1] != num_vertices:
             raise ValueError(

@@ -31,6 +31,11 @@ default to :class:`SimulatedCrash`, everything else to
 =========================  ==================================================
 point                      fires
 =========================  ==================================================
+``slot_update.cuda``       ``fused_apply``, once before its one attempt on
+``slot_update.torch``      that backend (operands untouched); the error
+                           reaches the caller
+``slot_walk.cuda``         ``slot_walk``, once before its one attempt on
+``slot_walk.torch``        that backend; the error reaches the caller
 ``durable.pre_append``     DurableGraph.apply, before the WAL append [crash]
 ``durable.post_append``    after the WAL append, before the device apply
 ``durable.post_apply``     after the device apply, before the ack
@@ -38,7 +43,21 @@ point                      fires
 ``wal.write``              UpdateJournal._write_flush, before the
                            segment write — surfaces as WalDiskFullError
                            with the segment truncated back intact
+``serve.enqueue``          WalkServer admission, inside the queue lock —
+                           the request must resolve as a clean rejection
+``serve.seal``             writer thread, before sealing a generation —
+                           readers must keep the previous sealed image
+``serve.dispatch``         dispatcher, before a batched walk — the batch
+                           must be retried or failed, never dropped
 =========================  ==================================================
+
+The kernel-site points carry the port's backend names (``cuda`` for the
+hand-written kernel, ``torch`` for its plain version) where ``repro`` has
+``pallas`` / ``xla`` / ``ref``, and no chain follows them: ``repro``'s
+``kernels/fallback.py`` breaker chain is not ported, because nothing may sit
+between a CUDA tensor and its kernel.  A fired point raises out of the op;
+the only degradation left is ``WalkServer``'s bounded retry of a batch on
+the same backend, after which the ticket fails visibly.
 
 The points live in this module's own registry, apart from ``repro``'s: a
 test of the port arms and disarms them here.

@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from repro_torch.configs import h2o_danube_1_8b, two_tower_retrieval
-from repro_torch.core import (REPRESENTATIONS, DiGraph, csr, edgebatch, traversal, updates,
-                              util, walk_image)
+from repro_torch.core import (REPRESENTATIONS, DiGraph, bitset, csr, edgebatch, traversal,
+                              updates, util, walk_image)
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
@@ -32,6 +32,7 @@ from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
 from repro_torch.models.recsys import two_tower
 from repro_torch.models.transformer import model as tm
+from repro_torch.launch import serve as launch_serve
 from repro_torch.runtime import durable
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -84,6 +85,13 @@ def test_durability_imports_neither_jax_nor_repro(module):
     _imports_alone(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.runtime.serve",
+                                    "repro_torch.runtime.failover",
+                                    "repro_torch.launch.serve"])
+def test_serving_imports_neither_jax_nor_repro(module):
+    _imports_alone(module)
+
+
 def test_chip_smoke_imports_only_the_port():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -113,7 +121,8 @@ REPS = ["coo", "lazy", "chunked", "vector2d"]
 @pytest.mark.parametrize(
     "entry",
     ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree", "init_model",
-     "init_cache", "from_jax_params", "from_dense", "recover"]
+     "init_cache", "from_jax_params", "from_dense", "recover", "bitset.make", "build_rep",
+     "seed_visits_row", "serve.main"]
     + [f"{r}.{e}" for r in REPS for e in ("from_csr", "from_state_tree")],
 )
 def test_default_device_raises_without_gpu(entry):
@@ -137,6 +146,10 @@ def test_default_device_raises_without_gpu(entry):
         "from_dense": lambda: csr.from_dense(np.eye(3)),
         # raises before it reads a directory
         "recover": lambda: durable.DurableGraph.recover("no-wal", "no-ckpt"),
+        "bitset.make": lambda: bitset.make(40),
+        "build_rep": lambda: launch_serve.build_rep(scale=3),
+        "seed_visits_row": lambda: launch_serve.seed_visits_row(4, [1]),
+        "serve.main": lambda: launch_serve.main(["--scale", "3", "--requests", "1"]),
     }
     for r in REPS:
         cls = REPRESENTATIONS[r]

@@ -1036,3 +1036,67 @@ def test_durable_audit_catches_corruption_on_card(cuda, port_faults, kind):
         msg = "degree sum"
     with pytest.raises(port_faults.AuditError, match=msg):
         port_faults.audit(g)
+
+
+# -- walk serving on the card (-k serve) --------------------------------------
+@pytest.mark.parametrize("b,t", [(2, 4099), (16, 8192)])
+def test_tile_cumsum_batched_walk_shape(cuda, b, t):
+    """The served walk's batched [B·T, 128] tiles, and the batched blocked
+    step through the kernel against its plain twin."""
+    from repro_torch.kernels.slot_walk import ops as sw_ops
+
+    rng = np.random.default_rng(b * t)
+    x = torch.from_numpy(rng.uniform(0, 1e4, (b * t, 128)).astype(np.float32)).to(cuda)
+    got, exp = sw_kernel.tile_cumsum(x), sw_kernel.tile_cumsum_torch(x)
+    scale = exp.abs().amax(dim=1, keepdim=True)
+    assert bool(((got - exp).abs() <= 1e-5 * exp.abs() + 1e-6 * scale).all())
+    c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=b, device=cuda)
+    img = DiGraph.from_csr(c, device=cuda).to_walk_image()
+    v0 = torch.from_numpy(rng.random((b, img.nv)).astype(np.float32)).to(cuda)
+    before = KERNELS["tile_cumsum"].launches
+    vk = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True)
+    assert KERNELS["tile_cumsum"].launches == before + 4
+    vp = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True, backend="torch")
+    torch.testing.assert_close(vk, vp, rtol=5e-4, atol=1e-6)
+
+
+def test_served_batches_on_card_match_oracle(cuda, port_faults):
+    """A WalkServer over a DiGraph on the card: the writer's applies launch
+    merge_rows_fused, the batched walks tile_cumsum (never its plain
+    version), every served walk matches the card-side oracle at its own
+    generation, and a slot_walk.cuda fault is served by retry."""
+    from repro_torch.kernels.slot_walk import kernel as swk
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.runtime import serve as serve_mod
+
+    rep, c = launch_serve.build_rep(kind="social", scale=10, device=cuda)
+    plain = {"n": 0}
+    inner = swk.tile_cumsum_torch
+
+    def spy(vals):
+        plain["n"] += 1
+        return inner(vals)
+
+    swk.tile_cumsum_torch = spy
+    counts = {k: KERNELS[k].launches for k in ("tile_cumsum", "merge_rows_fused")}
+    srv = serve_mod.WalkServer(rep, batch_max=16).start()
+    try:
+        walks, upds = launch_serve.run_traffic(srv, c.n, requests=120, update_every=10,
+                                               update_size=64, seed=13)
+        port_faults.arm("slot_walk.cuda", times=2)
+        walks += [srv.submit_walk([1, 2, 3], steps=4) for _ in range(8)]
+        for t in walks:
+            assert t.wait(120.0)
+    finally:
+        stats = srv.stop(timeout=120.0)
+        swk.tile_cumsum_torch = inner
+        port_faults.disarm()
+    srv.assert_no_lost()
+    assert stats["served"] == 128 and stats["failed"] == 0 and stats["dispatch_retries"] >= 1
+    assert plain["n"] == 0
+    assert KERNELS["tile_cumsum"].launches > counts["tile_cumsum"]
+    assert KERNELS["merge_rows_fused"].launches > counts["merge_rows_fused"]
+    assert all(t.visits.device.type == "cuda" for t in walks)
+    torn, checked = launch_serve.count_torn_reads(
+        launch_serve.GenerationOracle(c), walks, upds)
+    assert torn == 0 and checked == 128

@@ -237,7 +237,7 @@ def test_bitset_words_match_repro():
 
     rng = np.random.default_rng(3)
     idx = rng.integers(0, 200, 90)
-    tb, jb = bitset.make(200), j_bitset.make(200)
+    tb, jb = bitset.make(200, device="cpu"), j_bitset.make(200)
     assert bitset.capacity(tb) == j_bitset.capacity(jb)
     tb, jb = bitset.set_many(tb, idx), j_bitset.set_many(jb, jnp.asarray(idx))
     np.testing.assert_array_equal(tb.numpy().view(np.uint32), np.asarray(jb))
