@@ -87,6 +87,30 @@ SNAP's soc-LiveJournal1):
           runs.  Latency percentiles, throughput, the seal's host time and
           the update acks are timed; one B = 16 batch is timed by CUDA
           events, and its batched tile_cumsum held against the plain one
+  sharded the social CSR cut into 4 shards on the one card (shard_csr,
+          timed; the bytes each shard holds printed), gather_csr bit for
+          bit against the CSR; one and 16 batched 4-step walks held against
+          the DiGraph image walk of the same CSR (rtol 1e-4, 5e-4 on rows of
+          degree >= 128, plus 1e-6 of the walk's largest visit), the 42-step
+          walk timed (one tile_cumsum a shard a step) beside the DiGraph
+          image's, and both profiled for their kernels' device time; the
+          update phase's three plans routed through apply (the mixed one
+          timed), then gather_csr bit for bit against the DiGraph's to_csr;
+          a DurableGraph(diff=True) over it (full and differential
+          checkpoints timed), three more plans, a crash at
+          durable.post_append, recover(parallel=True) on the card (timed),
+          every shard's state_trees() bit for bit against an uncrashed twin;
+          on the recovered graph a shard.patch fault (the shard quarantined,
+          its subplan spooled, the rest patched), the degraded walk (exact
+          zeros on the down rows, the rest against a masked float64 walk), a
+          dst corruption caught by the structural audit and a wgt one only by
+          audit_shard with integrity on (both on a copy), the down shard
+          rebuilt (rebuild_shard, timed) back to coverage 1, gather_csr bit for bit
+          against the twin; then a WalkServer over the twin: 120 four-step
+          walks with updates and one shard.walk fault, the shard quarantined
+          and later responses at coverage < 1, zero lost, every served walk
+          checked against the oracle with its down rows masked (p50/p99
+          timed); no plain tile cumsum or row merge runs
   walk_bsr
           a road graph at scale 24 (16,777,216 vertices, ~36.9M directed
           edges, the class of SuiteSparse's asia_osm) re-blocked into
@@ -227,6 +251,14 @@ SERVE_LEVELS = {
 #: the seal level's writer pause after a failed seal: the window in which a
 #: reader must be served the previous generation
 SERVE_SEAL_BACKOFF_S = 0.5
+#: the sharded phase: shards of the social graph (ROADMAP.md §1 item 1's
+#: 2-8 on one card), the size of its durable and failover plans (mixed,
+#: this fraction of |E| inserted and as many deleted) and its serving
+#: traffic (bench_serve's knobs, 120 requests, one shard.walk fault)
+SHARDS, SHARD_PLAN_FRAC, SHARD_SERVE_REQUESTS = 4, 1e-3, 120
+#: rows whose block spans at least a tile: the walk's hub-row band
+#: (ROADMAP.md §3) applies to them, the plain rtol to the rest
+HUB_DEGREE = 128
 #: prefill against decode: prompt length, batch and the tolerance of
 #: repro's own check (tests/test_models.py:46; the bfloat16 cache rounds
 #: K and V that forward keeps in float32)
@@ -905,6 +937,406 @@ def durable_phase(c, launches: dict, times: dict, dev, card: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def hold_walk(got, ref, hub, what: str) -> dict:
+    """Hold a walk against a reference walk of the same graph: each row
+    within rtol 1e-4 of the reference (5e-4 on ``hub`` rows, the
+    uncompensated intra-tile level's band) plus 1e-6 of its walk's largest
+    visit (the ~ulp residue a tile prefix leaves on a row whose sum is 0
+    or small, in another tile alignment).  -> the max relative diffs."""
+    ref64, got64 = ref.double(), got.double()
+    err = (got64 - ref64).abs()
+    rtol = torch.where(hub, WALK_RTOL, EXACT_WALK_RTOL)
+    bad = err > rtol * ref64.abs() + WALK_ATOL * ref64.abs().amax(dim=-1, keepdim=True)
+    if tuple(got.shape) != tuple(ref.shape) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} or non-finite visits")
+    if bool(bad.any()):
+        idx = torch.nonzero(bad)[:4].tolist()
+        raise AssertionError(f"{what}: {int(bad.sum())} visits beyond tolerance, e.g. "
+                             + ", ".join(f"{i}: {float(got64[tuple(i)])} vs "
+                                         f"{float(ref64[tuple(i)])}" for i in idx))
+    nz = ref64 != 0
+    rel = torch.where(nz, err / ref64.abs().clamp(min=1e-300), torch.zeros_like(err))
+    return {"max_rel_diff": float(rel[~hub.expand_as(rel)].max()),
+            "max_rel_diff_hub": float(rel[hub.expand_as(rel)].max()) if bool(hub.any()) else 0.0}
+
+
+def device_profile(fn) -> tuple:
+    """(device ms of the kernels ``fn()`` ran, their launches), from one
+    ``torch.profiler`` trace of the call."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU]
+    us = 0.0
+    for e in kernels:
+        t_ = getattr(e, "device_time_total", None)
+        us += e.cuda_time_total if t_ is None else t_
+    return us / 1e3, sum(e.count for e in kernels)
+
+
+def twin_sharded(sg, dist):
+    """A private copy of a sharded graph (every shard's payload and
+    geometry), healthy, on its device."""
+    return dist.ShardedGraph(shards=[twin_image(img) for img in sg.shards], n=sg.n,
+                             rows_max=sg.rows_max, n_shards=sg.n_shards, dense=sg.dense)
+
+
+def assert_same_sharded(a, b, what: str, dist) -> None:
+    """``gather_csr`` and every shard's ``state_trees()`` array of two
+    sharded graphs, bit for bit."""
+    ca, cb = dist.gather_csr(a), dist.gather_csr(b)
+    for f in ("offsets", "dst", "wgt"):
+        if not same_bits(getattr(ca, f), getattr(cb, f)):
+            raise AssertionError(f"{what}: gather_csr {f} differs")
+    ta, tb = a.state_trees(), b.state_trees()
+    for s in tb:
+        for key in tb[s]:
+            if not same_bits(ta[s][key], tb[s][key]):
+                raise AssertionError(f"{what}: shard {s} state_trees[{key!r}] differs")
+
+
+def sharded_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> None:
+    """The sharded phase (see the module docstring).  ``c`` is the social
+    CSR on the card, ``g`` the update phase's DiGraph (after ``plans``).
+    The journal and checkpoints live under ``build/chip_smoke_sharded_<pid>/``,
+    removed on the way out whether the checks pass or not."""
+    from repro_torch.core import DiGraph, distributed as dist, edgebatch, updates
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.slot_update import kernel as su_kernel
+    from repro_torch.kernels.slot_update import ops as su_ops
+    from repro_torch.kernels.slot_walk import kernel as sw_kernel
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.runtime import durable, failover, faultinject
+    from repro_torch.runtime import serve as serve_mod
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"chip_smoke_sharded_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    wal, ck = os.path.join(root, "wal"), os.path.join(root, "ckpt")
+    plain = ("tile_cumsum_torch", "gather_merge_torch", "merge_rows_fused_torch")
+    phase = dict.fromkeys(KERNELS, 0)
+    p0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n = int(c.n)
+    rng = np.random.default_rng(SEED + 2)
+
+    def draw(csr_):
+        """A mixed plan: SHARD_PLAN_FRAC |E| random insertions and as many
+        random deletions of live edges."""
+        k = max(round(SHARD_PLAN_FRAC * csr_.m), 1)
+        return updates.plan_update(inserts=edgebatch.random_insertions(rng, n, k),
+                                   deletes=edgebatch.random_deletions(rng, csr_, k))
+
+    def walk_steps(call, want: int, what: str):
+        """``call()`` inside ``counted``: tile_cumsum launched ``want`` times."""
+        with counted(KERNELS, phase):
+            out = call()
+        if KERNELS["tile_cumsum"].launches != want:
+            raise AssertionError(f"sharded/{what}: tile_cumsum launched "
+                                 f"{KERNELS['tile_cumsum'].launches} times, expected {want}")
+        return out
+
+    try:
+        with count_calls(sw_kernel, plain[:1]) as pc, count_calls(su_kernel, plain[1:]) as pm:
+            # 1. build, and the structure back
+            t0 = sync_now()
+            with counted(KERNELS, phase):
+                sg = dist.shard_csr(c, SHARDS, device=dev)
+            times["sharded_build_ms"] = sync_s(t0) * 1e3
+            shard_bytes = [sum(t_.numel() * t_.element_size() for t_ in (i.dst, i.wgt, i.rows))
+                           for i in sg.shards]
+            gc = dist.gather_csr(sg)
+            for f in ("offsets", "dst", "wgt"):
+                if not same_bits(getattr(gc, f), getattr(c, f)[: c.m if f != "offsets" else None]):
+                    raise AssertionError(f"sharded: gather_csr {f} differs from the CSR")
+            del gc
+            say("sharded", card=card, shards=SHARDS, n=n, m=c.m, rows_max=sg.rows_max,
+                cap_e=sg.cap_e, dense=sg.dense,
+                live="/".join(str(int(i.live)) for i in sg.shards),
+                bump="/".join(str(int(i.bump)) for i in sg.shards),
+                edges_hi="/".join(str(i.edges_hi()) for i in sg.shards),
+                bytes_on_card="/".join(str(b_) for b_ in shard_bytes),
+                total_gb=f"{sum(shard_bytes) / 1e9:.3f}",
+                build_ms=f"{times['sharded_build_ms']:.1f}", gather_csr="bit-identical")
+
+            # 2. walks against the DiGraph image walk of the same CSR
+            img = DiGraph.from_csr(c, device=dev).to_walk_image()
+            hub = c.degrees >= HUB_DEGREE
+            one = hold_walk(walk_steps(lambda: sg.reverse_walk(4), 4 * SHARDS, "walk"),
+                            img.walk(4), hub, "sharded/walk")
+            wrng = np.random.default_rng(SERVE_VERIFY_SEED)
+            v0 = torch.stack([launch_serve.seed_visits_row(n, wrng.integers(0, n, SERVE_SEEDS),
+                                                           device=dev)
+                              for _ in range(SERVE_BATCH)])
+            b16 = hold_walk(walk_steps(lambda: sg.reverse_walk(4, visits0=v0), 4 * SHARDS,
+                                       "walk/B=16"),
+                            img.walk(4, visits0=v0), hub, "sharded/walk B=16")
+            sg.reverse_walk(1)  # warm-up
+            t0 = sync_now()
+            v = walk_steps(lambda: sg.reverse_walk(WALK_STEPS), SHARDS * WALK_STEPS, "walk/42")
+            times["sharded_walk_ms"] = sync_s(t0) * 1e3
+            if tuple(v.shape) != (n,):
+                raise AssertionError(f"sharded/walk: shape {tuple(v.shape)} != ({n},)")
+            del v
+            times["sharded_walk_b16_event_ms"] = time_ms(
+                lambda: sg.reverse_walk(4, visits0=v0), reps=5)
+            single_b16 = time_ms(lambda: img.walk(4, visits0=v0), reps=5)
+            t0 = sync_now()
+            img.walk(WALK_STEPS)
+            single_ms = sync_s(t0) * 1e3
+            busy = {}  # a 4-step walk's wall, its kernels' device time, launches
+            for k_, fn in (("sharded", lambda: sg.reverse_walk(4)),
+                           ("digraph_image", lambda: img.walk(4))):
+                t0 = sync_now()
+                fn()
+                busy[k_] = (sync_s(t0) * 1e3, *device_profile(fn))
+            del img
+            torch.cuda.empty_cache()
+            say("sharded", card=card, walk_steps=WALK_STEPS,
+                walk_ms=f"{times['sharded_walk_ms']:.1f}",
+                b16_event_ms=f"{times['sharded_walk_b16_event_ms']:.4f}",
+                digraph_image_b16_event_ms=f"{single_b16:.4f}",
+                digraph_image_walk_ms=f"{single_ms:.1f}",
+                **{f"{k_}_walk4_ms": f"{v_[0]:.2f}" for k_, v_ in busy.items()},
+                **{f"{k_}_walk4_device_busy_ms": f"{v_[1]:.2f}" for k_, v_ in busy.items()},
+                **{f"{k_}_walk4_kernel_launches": v_[2] for k_, v_ in busy.items()},
+                **{f"walk4_{k_}": f"{v_:.3e}" for k_, v_ in one.items()},
+                **{f"b16_{k_}": f"{v_:.3e}" for k_, v_ in b16.items()},
+                hub_rows=int(hub.sum()), vs_digraph="rtol 1e-4 (hub rows 5e-4) + 1e-6 of max")
+
+            # 3. the update phase's plans, routed
+            apply_ms, merge_launches = {}, {}
+            for name, plan in plans:
+                gen0 = sg.generation
+                routed = len(dist.route_updates(plan, SHARDS, sg.rows_max))
+                with count_calls(su_ops, ("fused_apply",)) as fa:
+                    t0 = sync_now()
+                    with counted(KERNELS, phase):
+                        sg.apply(plan)
+                    apply_ms[name] = sync_s(t0) * 1e3
+                merges = KERNELS["merge_rows_fused"].launches
+                if sg.generation != gen0 or fa["fused_apply"] != routed or merges < routed:
+                    raise AssertionError(f"sharded/{name}: {fa['fused_apply']} patches of "
+                                         f"{routed} routed shards, {merges} merges, "
+                                         f"generation {gen0} -> {sg.generation}")
+                merge_launches[f"{name}_merges"] = merges
+            times["sharded_mixed_ms"] = apply_ms["mixed"]
+            ref, gc = g.to_csr(), dist.gather_csr(sg)
+            for f in ("offsets", "dst", "wgt"):
+                if not same_bits(getattr(gc, f), getattr(ref, f)):
+                    raise AssertionError(f"sharded/update: gather_csr {f} differs from the "
+                                         f"DiGraph's to_csr")
+            del gc, ref
+            say("sharded", card=card, **{f"{k_}_ms": f"{v_:.1f}" for k_, v_ in apply_ms.items()},
+                **merge_launches, m=sg.m,
+                vs_digraph="gather_csr bit-identical to to_csr after the same plans")
+
+            # 4. durable: a full then a differential checkpoint, a crash at
+            # durable.post_append, recover(parallel=True) on the card
+            twin = twin_sharded(sg, dist)
+            t0 = sync_now()
+            dg = durable.DurableGraph(sg, wal, ck, diff=True, keep=2)
+            times["sharded_ckpt_full_ms"] = sync_s(t0) * 1e3
+            base = dist.gather_csr(sg)
+            dplans = [draw(base) for _ in range(4)]
+            del base
+            with counted(KERNELS, phase):
+                dg.apply(dplans[0])
+            t0 = sync_now()
+            path = dg.checkpoint()
+            times["sharded_ckpt_diff_ms"] = sync_s(t0) * 1e3
+            with open(os.path.join(path, "manifest.json")) as f:
+                man = json.load(f)
+            if man["kind"] != "diff":
+                raise AssertionError(f"sharded/durable: the second step is {man['kind']}")
+            diff_bytes = sum(b_["diff_bytes"] for b_ in man["shards"].values())
+            with counted(KERNELS, phase):
+                dg.apply(dplans[1])
+                dg.apply(dplans[2])
+            crash_at(faultinject, "durable.post_append", lambda: dg.apply(dplans[3]))
+            dg.close()
+            for plan in dplans:
+                twin.apply(plan)
+            del dg, sg
+            torch.cuda.empty_cache()
+            st = {}
+            t0 = sync_now()
+            with counted(KERNELS, phase):
+                r = durable.DurableGraph.recover(wal, ck, device=dev, parallel=True, diff=True,
+                                                 keep=2, stats=st)
+            times["sharded_recover_ms"] = sync_s(t0) * 1e3
+            if st["records"] != 3 or r.seq != 4 or r.rep_name != "sharded":
+                raise AssertionError(f"sharded/durable: replayed {st['records']} records "
+                                     f"to seq {r.seq}")
+            if r.rep.generation or twin.generation:
+                raise AssertionError("sharded/durable: a global re-shard ran")
+            assert_same_sharded(r.rep, twin, "sharded/recovered", dist)
+            say("sharded", card=card, ckpt_full_ms=f"{times['sharded_ckpt_full_ms']:.1f}",
+                ckpt_full_bytes=dir_bytes(os.path.join(ck, "step_0000000000")),
+                ckpt_diff_ms=f"{times['sharded_ckpt_diff_ms']:.1f}",
+                ckpt_diff_persisted_bytes=diff_bytes,
+                crash="durable.post_append at record 4", records=st["records"],
+                recover_ms=f"{times['sharded_recover_ms']:.1f}",
+                restore_ms=f"{st['restore_s'] * 1e3:.1f}",
+                replay_ms=f"{st['replay_s'] * 1e3:.1f}", replay="parallel, a thread a shard",
+                state_trees="every shard bit-identical to the twin")
+
+            # 5. failover on the recovered graph
+            fplan = draw(dist.gather_csr(twin))
+            routed = dist.route_updates(fplan, SHARDS, r.rep.rows_max)
+            victim = routed[0][0]
+            faultinject.arm("shard.patch", times=1)
+            try:
+                with counted(KERNELS, phase):
+                    r.apply(fplan)  # the first routed shard's patch faults
+            finally:
+                faultinject.disarm()
+            twin.apply(fplan)
+            if r.rep.down != {victim} or len(r.rep.spooled(victim)) != 1:
+                raise AssertionError(f"sharded/failover: down {r.rep.down}, spooled "
+                                     f"{len(r.rep.spooled(victim))}")
+            for s_ in range(SHARDS):  # the rest patched
+                if s_ != victim and not same_bits(r.rep.shards[s_].dst, twin.shards[s_].dst):
+                    raise AssertionError(f"sharded/failover: healthy shard {s_} differs")
+            down = r.rep.down_rows()
+            vd = walk_steps(lambda: r.rep.reverse_walk(4), 4 * (SHARDS - 1), "degraded walk")
+            if bool((vd[torch.from_numpy(down).to(dev)] != 0).any()):
+                raise AssertionError("sharded/failover: a down row reads non-zero")
+            masked = launch_serve.GenerationOracle(dist.gather_csr(twin)).walk(
+                0, torch.ones(n, device=dev), 4, drop_rows=down)
+            healthy = torch.ones(n, dtype=torch.bool, device=dev)
+            healthy[torch.from_numpy(down).to(dev)] = False
+            held = hold_walk(vd[healthy], masked[healthy], hub[healthy],
+                             "sharded/degraded walk")
+            del vd, masked
+            coverage = r.rep.coverage
+            # silent damage, on a copy of two healthy shards: dst (integrity
+            # off) is caught by the structural audit; wgt only by audit_shard
+            # with integrity on (the other shards quarantined in the copy, so
+            # only the damaged one is hashed)
+            h_dst, h_wgt = [s_ for s_ in range(SHARDS) if s_ != victim][:2]
+            probe = twin_sharded(r.rep, dist)
+            failover.corrupt_shard(probe, h_dst, kind="dst")
+            try:
+                probe.audit_shard(h_dst)
+            except faultinject.AuditError as e:
+                dst_caught = str(e)
+            else:
+                raise AssertionError("sharded/failover: a SENTINEL dst slot passed the audit")
+            for s_ in range(SHARDS):
+                if s_ != h_wgt:
+                    probe.quarantine(s_)
+            probe.enable_integrity()
+            failover.corrupt_shard(probe, h_wgt, kind="wgt")
+            probe.shards[h_wgt].audit()  # structurally valid
+            probe.audit_shard(h_wgt, verify=False)
+            try:
+                probe.audit_shard(h_wgt)
+            except dist.ShardIntegrityError as e:
+                wgt_caught = str(e)
+            else:
+                raise AssertionError("sharded/failover: a flipped weight passed the CRC audit")
+            del probe
+            t0 = sync_now()
+            with counted(KERNELS, phase):
+                rebuilt = r.rebuild_shard(victim)
+            times["sharded_rebuild_ms"] = sync_s(t0) * 1e3
+            if r.rep.down or r.rep.coverage != 1.0:
+                raise AssertionError(f"sharded/failover: still down {r.rep.down}")
+            gr, gt = dist.gather_csr(r.rep), dist.gather_csr(twin)
+            for f in ("offsets", "dst", "wgt"):
+                if not same_bits(getattr(gr, f), getattr(gt, f)):
+                    raise AssertionError(f"sharded/failover: rebuilt gather_csr {f} differs")
+            del gr, gt
+            hold_walk(walk_steps(lambda: r.rep.reverse_walk(4), 4 * SHARDS, "rebuilt walk"),
+                      twin.reverse_walk(4), hub, "sharded/rebuilt walk")
+            say("sharded", card=card, fault="shard.patch", victim=victim,
+                spooled=1, coverage=f"{coverage:.6f}", down_rows=int(down.shape[0]),
+                degraded_walk="down rows exact 0; the rest vs a masked float64 walk",
+                **{f"degraded_{k_}": f"{v_:.3e}" for k_, v_ in held.items()},
+                dst_corruption=f"shard {h_dst}: {dst_caught}",
+                wgt_corruption=f"shard {h_wgt}: caught only with integrity on: {wgt_caught}",
+                rebuilt=f"shard {victim}: {rebuilt} records and its spool",
+                rebuild_ms=f"{times['sharded_rebuild_ms']:.1f}", coverage_after=1.0,
+                vs_twin="gather_csr bit-identical, walk at the walk tolerances")
+            r.close()
+            del r
+            torch.cuda.empty_cache()
+
+            # 6. serving over the sharded graph, with one shard.walk fault
+            oracle = launch_serve.GenerationOracle(dist.gather_csr(twin))
+            srv = serve_mod.WalkServer(twin, batch_max=SERVE_BATCH, dispatch_retries=4).start()
+            try:
+                faultinject.arm("shard.walk", after=2 * SHARDS + 1, times=1)
+                with counted(KERNELS, phase):
+                    t0 = time.monotonic()
+                    walks, upds = launch_serve.run_traffic(
+                        srv, n, requests=SHARD_SERVE_REQUESTS, steps=SERVE_STEPS,
+                        seeds_per_request=SERVE_SEEDS, update_every=SERVE_UPDATE_EVERY,
+                        update_size=SERVE_UPDATE_SIZE, seed=SERVE_SEED, submit_gap_s=0.002)
+                    for t_ in walks + [u_ for u_, _ in upds]:
+                        if not t_.wait(120.0):
+                            raise AssertionError("sharded/serve: a ticket is still pending")
+                    wall = time.monotonic() - t0
+                fired = faultinject.fired("shard.walk")
+            finally:
+                faultinject.disarm()
+                srv.stop(timeout=120.0)
+            stats = srv.assert_no_lost()
+            down_of = {}
+
+            def down_rows_of(t_):
+                if not t_.down_shards:
+                    return None
+                key = tuple(t_.down_shards)
+                if key not in down_of:
+                    down_of[key] = np.concatenate([np.arange(*twin.owned_range(s_))
+                                                   for s_ in key])
+                return down_of[key]
+
+            torn, checked = launch_serve.count_torn_reads(oracle, walks, upds,
+                                                          down_rows_of=down_rows_of)
+            served = [t_ for t_ in walks if t_.status == serve_mod.SERVED]
+            degraded = [t_ for t_ in served if t_.coverage < 1.0]
+            if (torn or checked != len(served) or fired != 1 or stats["failed"]
+                    or stats["shard_quarantines"] != 1 or not degraded
+                    or len(twin.down) != 1):
+                raise AssertionError(
+                    f"sharded/serve: torn {torn} of {checked}, fired {fired}, failed "
+                    f"{stats['failed']}, quarantines {stats['shard_quarantines']}, "
+                    f"degraded {len(degraded)}, down {twin.down}")
+            pct = launch_serve.percentiles([t_.latency_s for t_ in served])
+            times["sharded_serve_p50_ms"] = pct["p50_ms"]
+            times["sharded_serve_p99_ms"] = pct["p99_ms"]
+            say("sharded", card=card, serve_requests=SHARD_SERVE_REQUESTS, served=len(served),
+                submitted=stats["submitted"], lost=0, failed=stats["failed"],
+                batches=stats["batches"], max_batch=stats["max_batch"],
+                updates=stats["updates_applied"], fault="shard.walk", fired=fired,
+                quarantined=sorted(twin.down), dispatch_retries=stats["dispatch_retries"],
+                served_degraded=stats["served_degraded"],
+                min_coverage=f"{min(t_.coverage for t_ in served):.6f}",
+                **{k_: f"{v_:.2f}" for k_, v_ in pct.items()},
+                req_per_s=f"{len(served) / wall:.1f}", torn_reads=torn, torn_checked=checked)
+            del srv, twin, oracle
+        if any(pc.values()) or any(pm.values()):
+            raise AssertionError(f"sharded: plain versions ran: {pc} {pm}")
+        for k_ in ("tile_cumsum", "merge_rows_fused"):
+            if phase[k_] == 0:
+                raise AssertionError(f"sharded: {k_} never launched")
+        for k_, v_ in phase.items():
+            launches[k_] += v_
+        say("sharded", card=card,
+            launches="/".join(f"{k_}={v_}" for k_, v_ in phase.items() if v_),
+            plain_calls=0, phase_peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            disk_peak_bytes=dir_bytes(root), phase_s=f"{time.perf_counter() - p0:.1f}")
+    finally:
+        faultinject.disarm()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def serve_phase(g, launches: dict, times: dict, dev, card: str) -> None:
     """The serve phase (see the module docstring).  ``g`` is the social
     DiGraph on the card; every level serves a clone of it, so ``g`` stays
@@ -1448,6 +1880,11 @@ def main() -> None:
     p0 = time.perf_counter()
     serve_phase(g, launches, times, dev, smi)
     phase_s["serve_s"] = time.perf_counter() - p0
+
+    # 7e. sharded (ShardedGraph in local mode: failover, durability) ------
+    p0 = time.perf_counter()
+    sharded_phase(c, g, plans, launches, times, dev, smi)
+    phase_s["sharded_s"] = time.perf_counter() - p0
 
     # 8. walk_bsr (paper task 4 as iterated block-sparse SpMM) ------------
     p0 = t0 = sync_now()

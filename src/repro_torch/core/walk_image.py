@@ -79,7 +79,14 @@ def seal_generation(rep, generation: int = 0) -> "WalkImage":
       per-buffer COW is the isolation — ``rep.snapshot()`` seals the arena
       buffers (the next in-place update copies only what it writes) and
       the snapshot's image wrap becomes the frozen generation.
+
+    Reps with their own ``seal_generation`` (``ShardedGraph``: per-shard
+    seals + quarantine masking, §17; ``DurableGraph``, which seals the rep
+    it wraps) delegate wholesale.
     """
+    own = getattr(rep, "seal_generation", None)
+    if own is not None:
+        return own(generation)
     img = rep.to_walk_image()
     if not img.shared:
         return img.seal(generation)
@@ -156,6 +163,11 @@ class WalkImage:
     @property
     def cap_e(self) -> int:
         return int(self.dst.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        """The device the payload lives on (what a walk of it runs on)."""
+        return self.dst.device
 
     @property
     def occupancy(self) -> float:

@@ -38,9 +38,25 @@ because the op stream is idempotent (inserts are upserts at fixed weights,
 deletes of absent keys filter out).
 
 Crash points, torn-tail repair, and the post-recovery invariant sweep
-are exercised through ``runtime/faultinject.py``.  The sharded half
-(owner-routed parallel replay, per-shard dirty tracking, single-shard
-rebuild) arrives with the mesh.
+are exercised through ``runtime/faultinject.py``.
+
+The sharded half (DESIGN.md §15/§17), for a ``ShardedGraph`` in local mode:
+
+* **owner-routed parallel replay** — ``recover(parallel=True)`` partitions
+  replayed records by shard owner through the SAME ``route_updates``
+  searchsorted the live path uses and drains each shard's queue on its own
+  thread (each through the shard's fused ``slot_update`` patch path, every
+  thread on the device's default stream).  Growth records fence the
+  fan-out into epochs; the per-shard + cross-boundary ``audit()`` gates
+  the result.
+* **tracked differential checkpoints** — with ``diff=True`` the wrapper
+  tracks the WAL window's dirty blocks (plan rows + image block geometry)
+  and hands them to ``checkpoint.manager.save_arrays_diff`` as hints, so
+  only those chunks persist, with a full compaction checkpoint every
+  ``full_every`` snapshots.
+* **online single-shard rebuild** — ``rebuild_shard`` restores one
+  quarantined shard from its checkpoint chain, replays its slice of the WAL
+  window and its spool, and reintegrates it while the rest keeps serving.
 """
 from __future__ import annotations
 
@@ -54,7 +70,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..checkpoint import manager as ckpt
-from ..core import REPRESENTATIONS, updates, util, walk_image
+from ..core import REPRESENTATIONS, distributed as dist, updates, util, walk_image
 from . import faultinject
 
 #: Record header: magic "WAL1", sequence number, vertex watermark, op
@@ -380,6 +396,24 @@ class UpdateJournal:
         self._close_fh()
 
 
+class _ShardDirty:
+    """Per-shard dirty-block accumulator for differential checkpoints."""
+
+    __slots__ = ("full", "touched", "rows", "ranges")
+
+    def __init__(self):
+        self.full = False     # whole shard dirty (rebuild / tracker overflow)
+        self.touched = False
+        self.rows = []        # np arrays of touched row ids
+        self.ranges = []      # np [K, 2] half-open slot-element ranges
+
+
+#: Beyond this many tracked rows a shard's accumulator degrades to
+#: "full" — the diff would approach full size anyway and the tracking
+#: lists must not grow with the WAL window unbounded.
+_DIRTY_CAP = 1 << 16
+
+
 class DurableGraph:
     """A representation wrapped in WAL-first apply + checkpoint/restore.
 
@@ -392,8 +426,10 @@ class DurableGraph:
     full canonical state every k applies (k=0: manual only); the
     constructor writes a step-0 checkpoint so recovery always has a base.
 
-    ``rep`` is one of the five registered representations, on whatever
-    device it was built on.  ``diff=True`` switches periodic checkpoints to
+    ``rep`` is one of the five registered representations OR a
+    ``ShardedGraph`` (§14), on whatever device it was built on — the
+    wrapper detects which and routes applies, checkpoints and recovery
+    accordingly.  ``diff=True`` switches periodic checkpoints to
     differential steps (every ``full_every``-th snapshot is a full
     compaction point that re-anchors the chain).
     """
@@ -412,10 +448,11 @@ class DurableGraph:
         full_every: int = 8,
         _recovering: bool = False,
     ):
-        if type(rep) not in REPRESENTATIONS.values():
+        self._sharded = isinstance(rep, dist.ShardedGraph)
+        if not self._sharded and type(rep) not in REPRESENTATIONS.values():
             raise TypeError(
-                f"DurableGraph: {type(rep).__name__} is not one of the registered "
-                f"representations {sorted(REPRESENTATIONS)}"
+                f"DurableGraph: {type(rep).__name__} is neither a ShardedGraph nor one "
+                f"of the registered representations {sorted(REPRESENTATIONS)}"
             )
         self.rep = rep
         self.wal_dir = wal_dir
@@ -425,6 +462,7 @@ class DurableGraph:
         self.diff = bool(diff)
         self.full_every = max(int(full_every), 1)
         self._ckpts_since_full = 0
+        self._dirty: dict = {}
         # replay applies are not tracked → first post-recovery checkpoint
         # must be a full one (as in repro, so the chains agree)
         self._force_full = bool(_recovering)
@@ -439,19 +477,108 @@ class DurableGraph:
 
     @property
     def rep_name(self) -> str:
+        if self._sharded:
+            return "sharded"
         cls = type(self.rep)
         for name, c in REPRESENTATIONS.items():
             if c is cls:
                 return name
         raise TypeError(f"unregistered representation {cls.__name__}")
 
+    # -- dirty-block tracking (differential checkpoints, §15) ----------
+    def _dirty_pre(self, plan):
+        """Snapshot the block geometry a plan is about to disturb."""
+        rep = self.rep
+        per = []
+        for sid, sub in dist.route_updates(plan, rep.n_shards, rep.rows_max):
+            img = rep.shards[sid]
+            rows = sub.touched_rows(rep.v_pad)
+            per.append((sid, rows, img.block_ranges(rows), img.bump))
+        return rep.generation, per
+
+    def _dirty_post(self, pre) -> None:
+        gen0, per = pre
+        rep = self.rep
+        if rep.generation != gen0:
+            # a rebuild re-sharded every image: every shard dirty
+            for sid in range(rep.n_shards):
+                d = self._dirty.setdefault(sid, _ShardDirty())
+                d.full = d.touched = True
+                d.rows, d.ranges = [], []
+            return
+        for sid, rows, old_ranges, bump0 in per:
+            img = rep.shards[sid]
+            d = self._dirty.setdefault(sid, _ShardDirty())
+            d.touched = True
+            if d.full:
+                continue
+            d.rows.append(rows)
+            d.ranges.append(old_ranges)            # vacated slots → SENTINEL
+            d.ranges.append(img.block_ranges(rows))  # current extents
+            if img.bump > bump0:                   # freshly bumped blocks
+                d.ranges.append(np.array([[bump0, img.bump]], np.int64))
+            if sum(r.shape[0] for r in d.rows) > _DIRTY_CAP:
+                d.full, d.rows, d.ranges = True, [], []
+
+    def _export_dirty(self) -> dict:
+        """The {shard: hint} dirty-block set ``save_arrays_diff`` consumes."""
+        meta_full = {
+            "__meta__/rep": "full", "__meta__/wal_seq": "full",
+            "__meta__/nv_bound": "full",
+        }
+        out = {}
+        for sid in range(self.rep.n_shards):
+            d = self._dirty.get(sid)
+            if d is None or not d.touched:
+                if sid == 0:
+                    # shard 0 carries the wrapper meta, which always moves
+                    hint = {k: "clean" for k in
+                            ("dst", "wgt", "rows", "starts", "caps", "degs")}
+                    hint["meta"] = "clean"
+                    hint.update(meta_full)
+                    out[sid] = hint
+                else:
+                    out[sid] = "clean"
+                continue
+            if d.full:
+                out[sid] = "full"
+                continue
+            rows = (
+                np.unique(np.concatenate(d.rows)).astype(np.int64)
+                if d.rows else np.empty(0, np.int64)
+            )
+            row_ranges = np.stack([rows, rows + 1], axis=1)
+            slot_ranges = (
+                np.concatenate([np.asarray(r).reshape(-1, 2) for r in d.ranges])
+                if d.ranges else np.empty((0, 2), np.int64)
+            )
+            hint = {
+                "dst": slot_ranges, "wgt": slot_ranges, "rows": slot_ranges,
+                "starts": row_ranges, "caps": row_ranges, "degs": row_ranges,
+                "meta": "full",  # nv/bump/live counters, a few ints
+            }
+            if sid == 0:
+                hint.update(meta_full)
+            out[sid] = hint
+        return out
+
+    def _reset_dirty(self) -> None:
+        self._dirty = {}
+        self._force_full = False
+
     # -- the durable apply path ----------------------------------------
     def _rep_apply(self, plan: updates.UpdatePlan) -> int:
-        """Dispatch one validated plan into the live representation.  Reps
-        with rebuild semantics (SortedCOO) return a successor instance —
-        rebind so the wrapper always tracks live state."""
-        self.rep, dm = self.rep.apply(plan)
-        return dm
+        """Dispatch one validated plan into the live representation."""
+        if not self._sharded:
+            # reps with rebuild semantics (SortedCOO) return a successor
+            # instance — rebind so the wrapper always tracks live state
+            self.rep, dm = self.rep.apply(plan)
+            return dm
+        pre = self._dirty_pre(plan) if self.diff else None
+        self.rep.apply(plan)  # ShardedGraph mutates in place
+        if pre is not None:
+            self._dirty_post(pre)
+        return 0
 
     def apply(self, plan: updates.UpdatePlan):
         """WAL-first apply; returns (self, net ΔM)."""
@@ -508,18 +635,25 @@ class DurableGraph:
         """Snapshot the canonical state; prune the WAL behind it.
 
         With ``diff=True`` this writes a differential step against the
-        latest checkpoint, hash-comparing chunks — unless no base exists,
-        the chain is ``full_every`` long (periodic compaction), or the
-        window holds replayed applies (post-recovery) — in which case it
-        falls back to a full step that re-anchors the chain.
+        latest checkpoint — unless no base exists, the chain is
+        ``full_every`` long (periodic compaction), or the window holds
+        replayed applies (post-recovery) — in which case it falls back to
+        a full step that re-anchors the chain.  A sharded graph's step
+        writes one file per shard and persists exactly its tracked dirty
+        blocks; a single-device diff hash-compares chunks against the base.
         """
-        arrays = dict(self.rep.state_tree())
-        arrays.update({
+        meta = {
             "__meta__/rep": np.array(self.rep_name),
             "__meta__/wal_seq": np.int64(self.seq),
             "__meta__/nv_bound": np.int64(self._nv_bound),
-        })
-        shards = {0: arrays}
+        }
+        if self._sharded:
+            shards = {int(s): dict(t) for s, t in self.rep.state_trees().items()}
+            shards[0].update(meta)
+        else:
+            arrays = dict(self.rep.state_tree())
+            arrays.update(meta)
+            shards = {0: arrays}
         step = max(self.seq, 0)
         want_diff = (
             self.diff
@@ -528,12 +662,14 @@ class DurableGraph:
             and self._ckpts_since_full < self.full_every - 1
         )
         if want_diff:
-            path = ckpt.save_arrays_diff(self.ckpt_dir, step, shards, keep=self.keep)
+            dirty = self._export_dirty() if self._sharded else None
+            path = ckpt.save_arrays_diff(self.ckpt_dir, step, shards, keep=self.keep,
+                                         dirty=dirty)
             self._ckpts_since_full += 1
         else:
             path = ckpt.save_arrays_sharded(self.ckpt_dir, step, shards, keep=self.keep)
             self._ckpts_since_full = 0
-        self._force_full = False
+        self._reset_dirty()
         self.journal.truncate_through(self.seq)
         self._applies_since_ckpt = 0
         return path
@@ -550,6 +686,8 @@ class DurableGraph:
         fsync: bool = False,
         segment_bytes: int = 1 << 20,
         audit: bool = True,
+        parallel: bool = True,
+        mesh=None,
         diff: bool = False,
         full_every: int = 8,
         stats: Optional[dict] = None,
@@ -558,19 +696,24 @@ class DurableGraph:
 
         1. sweep ``.tmp_ckpt_*`` debris (writers the crash interrupted);
         2. restore the newest complete checkpoint's exact state arrays —
-           full or a differential chain, resolved uniformly through
-           ``restore_arrays_diff`` — onto ``device`` (the card unless the
-           caller asks for the CPU);
+           full, sharded, or a differential chain, resolved uniformly
+           through ``restore_arrays_diff`` — onto ``device`` (the card
+           unless the caller asks for the CPU);
         3. repair the WAL tail (the append the crash interrupted) and
-           replay every record past the checkpoint's watermark serially
-           through the ordinary ``apply`` path, each record validated
-           against its own vertex watermark;
-        4. run the cross-layer invariant audit on the result.
+           replay every record past the checkpoint's watermark — for a
+           sharded graph with ``parallel=True``, owner-routed across
+           per-shard threads (:meth:`_replay_parallel`); otherwise
+           serially through the ordinary ``apply`` path — each record
+           validated against its own vertex watermark;
+        4. run the cross-layer invariant audit on the result (the
+           per-shard + cross-boundary pass for sharded graphs).
 
-        ``stats``, if given, receives ``restore_s`` / ``replay_s`` /
-        ``records``.
+        ``mesh`` takes only None (local mode; the multi-device mesh is not
+        ported).  ``stats``, if given, receives ``restore_s`` /
+        ``replay_s`` / ``records``.
         """
         dev = util.resolve_device(device)
+        dist._local_only(mesh, "DurableGraph.recover")
         t0 = time.perf_counter()
         ckpt.clean_stale(ckpt_dir)
         trees, _step = ckpt.restore_arrays_diff(ckpt_dir)
@@ -578,10 +721,13 @@ class DurableGraph:
         name = str(meta.pop("__meta__/rep")[()])
         wal_seq = int(meta.pop("__meta__/wal_seq")[()])
         nv_bound = int(meta.pop("__meta__/nv_bound")[()])
-        if name not in REPRESENTATIONS:
-            raise TypeError(f"recover: checkpoint holds {name!r}, not a single-device "
+        if name == "sharded":
+            rep = dist.ShardedGraph.from_state_trees(trees, device=dev)
+        elif name in REPRESENTATIONS:
+            rep = REPRESENTATIONS[name].from_state_tree(meta, device=dev)
+        else:
+            raise TypeError(f"recover: checkpoint holds {name!r}, neither 'sharded' nor a "
                             f"representation {sorted(REPRESENTATIONS)}")
-        rep = REPRESENTATIONS[name].from_state_tree(meta, device=dev)
         t1 = time.perf_counter()
         g = cls(
             rep, wal_dir, ckpt_dir,
@@ -591,14 +737,20 @@ class DurableGraph:
         )
         g.seq = wal_seq
         g._nv_bound = max(nv_bound, 1)
-        records = 0
-        for seq, rec_nv, (qs, qd, qw, ql) in g.journal.replay(after=wal_seq):
-            plan = updates.plan_from_canonical(qs, qd, qw, ql)
-            plan.validate(num_vertices=int(rec_nv))
-            g.rep, _ = g.rep.apply(plan)
-            g.seq = seq
-            g._nv_bound = max(g._nv_bound, int(rec_nv))
-            records += 1
+        if g._sharded and parallel:
+            records = g._replay_parallel(wal_seq)
+        else:
+            records = 0
+            for seq, rec_nv, (qs, qd, qw, ql) in g.journal.replay(after=wal_seq):
+                plan = updates.plan_from_canonical(qs, qd, qw, ql)
+                plan.validate(num_vertices=int(rec_nv))
+                if g._sharded:
+                    g.rep.apply(plan)
+                else:
+                    g.rep, _ = g.rep.apply(plan)
+                g.seq = seq
+                g._nv_bound = max(g._nv_bound, int(rec_nv))
+                records += 1
         t2 = time.perf_counter()
         if audit:
             faultinject.audit(g.rep)
@@ -606,12 +758,154 @@ class DurableGraph:
             stats.update(restore_s=t1 - t0, replay_s=t2 - t1, records=records)
         return g
 
+    def _replay_parallel(self, after: int) -> int:
+        """Owner-routed parallel WAL replay over the shards (§15).
+
+        Records are decoded and validated up front, then split into epochs
+        at growth records (a growth triggers the global re-shard, which
+        must see every earlier record applied and fences every later one).
+        Within an epoch each record is routed by the same ``route_updates``
+        searchsorted the live path uses into per-shard FIFO queues; one
+        thread per touched shard drains its queue through the shard's fused
+        patch path (all on the device's default stream, each thread on its
+        own shard's buffers).  A shard whose flush fails stops queueing
+        immediately (queue depth past ``MAX_PENDING`` would silently drop
+        plans) and hands its ordered remainder to ONE global ``_rebuild`` —
+        the fallback the live path takes, so recovered content is the
+        same.
+        """
+        from concurrent.futures import ThreadPoolExecutor
+
+        records = []
+        for seq, rec_nv, (qs, qd, qw, ql) in self.journal.replay(after=after):
+            plan = updates.plan_from_canonical(qs, qd, qw, ql)
+            plan.validate(num_vertices=int(rec_nv))
+            records.append((seq, int(rec_nv), plan))
+        if not records:
+            return 0
+
+        def drain(sid, subs):
+            img = self.rep.shards[sid]
+            for k, sub in enumerate(subs):
+                if img._stale:
+                    return subs[k:]
+                img.queue(sub)
+                if not img.flush():
+                    return subs[k + 1:]  # sub itself pends on img
+            return []
+
+        with ThreadPoolExecutor(max_workers=self.rep.n_shards) as ex:
+            i = 0
+            while i < len(records):
+                j = i
+                while j < len(records) and records[j][2].max_insert_vertex() < self.rep.n:
+                    j += 1
+                if j > i:  # fan an epoch of non-growth records out
+                    queues: dict = {}
+                    for _seq, _nv, plan in records[i:j]:
+                        for sid, sub in dist.route_updates(
+                            plan, self.rep.n_shards, self.rep.rows_max
+                        ):
+                            queues.setdefault(sid, []).append(sub)
+                    leftovers = list(ex.map(lambda kv: drain(*kv), sorted(queues.items())))
+                    self.rep._placed = None
+                    extra = [p for rest in leftovers for p in rest]
+                    if extra or any(img._pending for img in self.rep.shards):
+                        # _rebuild folds per-image pending queues first,
+                        # then extras — global (src, dst) order restored
+                        self.rep._rebuild(extra=tuple(extra))
+                if j < len(records):  # the growth record fencing the epoch
+                    self.rep.apply(records[j][2])
+                    j += 1
+                i = j
+        self.seq = records[-1][0]
+        self._nv_bound = max(self._nv_bound, max(nv for _s, nv, _p in records))
+        return len(records)
+
+    # -- shard failover: online single-shard rebuild (§17) -------------
     def seal_generation(self, generation: int = 0):
-        """Seal the live representation as a read-only walk generation."""
+        """Seal the live representation as a read-only walk generation.
+
+        Sharded reps seal per shard with quarantine masking (§17);
+        everything else goes through the ordinary §16 image seal.
+        """
         return walk_image.seal_generation(self.rep, generation)
+
+    def rebuild_shard(self, sid: int, *, stats: Optional[dict] = None) -> int:
+        """Rebuild ONE quarantined shard online and reintegrate it (§17).
+
+        restore just this shard's ``shard_{sid}.npz`` diff chain onto the
+        graph's device → replay its slice of the WAL window (checkpoint
+        step == wal_seq, so ``replay(after=step)`` is exactly the window)
+        through the shard's fused ``slot_update`` path → replay the
+        quarantine-era spool → audit → atomic ``reintegrate``.  The rest of
+        the graph keeps serving throughout — nothing here touches a
+        healthy shard.
+
+        Replay double-applies the records the shard already saw live
+        before the fault; the canonical op stream is last-op-wins per
+        (src, dst) key, so the double-apply converges.  A growth record in
+        the window means the layout was re-sharded globally — single-shard
+        rebuild is unsound then and :class:`ShardDownError` directs the
+        caller to a full ``recover()``.  Returns the number of WAL records
+        replayed.
+        """
+        if not self._sharded:
+            raise TypeError("rebuild_shard: single-device rep has no shards")
+        rep = self.rep
+        sid = int(sid)
+        if sid not in rep.down:
+            raise ValueError(f"rebuild_shard: shard {sid} is not quarantined")
+        t0 = time.perf_counter()
+        arrays, step = ckpt.restore_shard_diff(self.ckpt_dir, sid)
+        arrays = {k: v for k, v in arrays.items() if not k.startswith("__meta__/")}
+        meta = arrays["meta"]
+        if int(meta[3]) != rep.n or int(meta[4]) != rep.rows_max or int(meta[5]) != rep.n_shards:
+            raise dist.ShardDownError(
+                f"rebuild_shard: checkpoint layout (n={int(meta[3])}, "
+                f"rows_max={int(meta[4])}, S={int(meta[5])}) predates a "
+                f"global re-shard of the live graph (n={rep.n}, "
+                f"rows_max={rep.rows_max}, S={rep.n_shards}) — run a "
+                f"full recover()"
+            )
+        img = dist.image_from_state_tree(arrays, device=rep.device)
+        if img.cap_e != rep.cap_e:
+            raise dist.ShardDownError(
+                f"rebuild_shard: checkpoint cap_e={img.cap_e} != live "
+                f"cap_e={rep.cap_e} — layout re-sharded; run a full recover()"
+            )
+        t1 = time.perf_counter()
+        records = 0
+        for _seq, rec_nv, (qs, qd, qw, ql) in self.journal.replay(after=step):
+            plan = updates.plan_from_canonical(qs, qd, qw, ql)
+            plan.validate(num_vertices=int(rec_nv))
+            records += 1
+            if plan.max_insert_vertex() >= rep.n:
+                raise dist.ShardDownError(
+                    "rebuild_shard: growth record in the WAL window — the "
+                    "graph re-sharded globally; run a full recover()"
+                )
+            for s2, sub in dist.route_updates(plan, rep.n_shards, rep.rows_max):
+                if s2 == sid:
+                    img = dist.shard_image_apply(rep, sid, img, sub)
+        for sub in rep.spooled(sid):
+            img = dist.shard_image_apply(rep, sid, img, sub)
+        rep.reintegrate(sid, img)
+        if self.diff:
+            # replay applies were not dirty-tracked: the next differential
+            # checkpoint must persist this shard in full
+            d = self._dirty.setdefault(sid, _ShardDirty())
+            d.full = d.touched = True
+            d.rows, d.ranges = [], []
+        t2 = time.perf_counter()
+        if stats is not None:
+            stats.update(restore_s=t1 - t0, replay_s=t2 - t1, records=records)
+        return records
 
     # -- passthrough conveniences --------------------------------------
     def to_csr(self):
+        if self._sharded:
+            return dist.gather_csr(self.rep)
         return self.rep.to_csr()
 
     def reverse_walk(self, steps: int, **kw):

@@ -49,6 +49,15 @@ point                      fires
                            readers must keep the previous sealed image
 ``serve.dispatch``         dispatcher, before a batched walk — the batch
                            must be retried or failed, never dropped
+``shard.walk``             ShardedGraph.reverse_walk, once per healthy
+                           shard — surfaces as ShardFaultError(sid) so
+                           the serving layer quarantines that shard
+``shard.patch``            ShardedGraph.apply, before one shard's fused
+                           patch — the shard quarantines, its sub
+                           spools, the REST of the shards still patch
+``shard.corrupt``          after one shard's successful patch — silently
+                           flips a live weight (no exception escapes);
+                           only the §17 integrity pass can detect it
 =========================  ==================================================
 
 The kernel-site points carry the port's backend names (``cuda`` for the
@@ -65,7 +74,8 @@ test of the port arms and disarms them here.
 :func:`audit` is the post-recovery invariant pass: CSR well-formedness,
 WalkImage block-geometry/content integrity (``WalkImage.audit``), and
 CSR↔image cross-consistency, for any of the five representations, run as
-reductions on the representation's device.
+reductions on the representation's device; a ``ShardedGraph`` runs its own
+per-shard + cross-boundary audit.
 
 No ``repro_torch.core`` imports at module level — the core imports this
 module (``WalkImage.audit``); keeping it core-free breaks the cycle.
@@ -227,9 +237,19 @@ def audit(rep) -> dict:
     3. CSR ↔ image cross-consistency — the image's live payload, gathered in
        row order, is exactly the CSR's dst/wgt streams.
 
+    Sharded graphs (anything exposing per-shard ``shards`` plus its own
+    ``audit``, i.e. ``ShardedGraph`` — duck-typed so this module stays
+    core-import-free) delegate to their own per-shard + cross-boundary
+    audit pass (DESIGN.md §14), which is the §15 recovery gate.
+
     Raises :class:`AuditError` on the first violation (``repro``'s
-    messages); returns summary stats.  Sharded graphs arrive with the mesh.
+    messages); returns summary stats.
     """
+    if hasattr(rep, "shards") and hasattr(rep, "audit"):
+        try:
+            return rep.audit()
+        except ValueError as e:
+            raise AuditError(str(e)) from e
     c = rep.to_csr()
     off = c.offsets.to(torch.int64)
     dev = off.device

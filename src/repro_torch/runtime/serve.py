@@ -40,11 +40,18 @@ walk engine, turning concurrent per-user walk requests into single batched
   and a failed seal keeps readers on the previous consistent generation
   while the writer retries.
 
-* **Shard failover (DESIGN.md §17)** — the control plane of ``repro``
-  (``run_on_writer``, ``request_quarantine``, quarantine bookkeeping and
-  paced ``failover.AuditScheduler`` ticks) is kept whole.  It is inert on
-  the single-device representations, which have no shards; the sharded
-  mesh that exercises it is ported later.
+* **Shard failover (DESIGN.md §17)** — serving a ``ShardedGraph``, a
+  single lost shard degrades coverage instead of availability.  A walk
+  dispatch that trips ``ShardFaultError(sid)`` queues that shard for
+  quarantine on the writer (``request_quarantine``) and retries the
+  batch; the writer reseals a degraded generation, whose responses carry
+  ``coverage`` (the fraction of the vertex space served) and
+  ``down_shards``, so a degraded answer is explicit, never silent.  Paced
+  ``failover.AuditScheduler`` ticks (``audit_every``) sweep one healthy
+  shard a round, and ``run_on_writer`` serialises admin mutations
+  (corruption, ``DurableGraph.rebuild_shard`` reintegration) with the
+  apply stream.  On the single-device representations, which have no
+  shards, this control plane stays inert.
 
 Where results live: a walk batch runs exactly its ``b`` live rows (no
 padding: ``repro`` pads to a power of two only to keep its jit cache warm)
@@ -54,7 +61,10 @@ the host.
 
 The server is representation-agnostic: anything exposing ``apply(plan)``
 (returning ``(rep, dm)`` or mutating in place) plus ``to_walk_image()``
-(all five single-device representations) serves.
+(all five single-device representations) or its own ``seal_generation``
+(``ShardedGraph``, ``DurableGraph``) serves.  The dispatcher reads the
+sealed generation's ``device`` (a ``WalkImage``'s payload device, or the
+device every shard of a ``ShardedGraph`` lives on).
 """
 from __future__ import annotations
 
@@ -95,7 +105,8 @@ class RejectedError(RuntimeError):
 
 @dataclasses.dataclass
 class Generation:
-    """One sealed, read-only walk image plus its bookkeeping."""
+    """One sealed, read-only walk image (or sealed ``ShardedGraph``) plus
+    its bookkeeping."""
 
     gen_id: int
     image: walk_image.WalkImage
@@ -345,7 +356,7 @@ class WalkServer:
         if not self._seal_locked(initial=True):
             raise RuntimeError("WalkServer.start: generation 0 failed to seal")
         self._backend = util.resolve_backend(
-            self.walk_backend, self._generation.image.dst.device)
+            self.walk_backend, self._generation.image.device)
         self._closed = False
         for name, fn in (("serve-writer", self._writer_loop),
                          ("serve-dispatch", self._dispatch_loop)):
@@ -822,7 +833,7 @@ class WalkServer:
             t0 = time.monotonic()
             try:
                 faultinject.fire("serve.dispatch")
-                v0 = self._initial_visits(specs, nv, gen.image.dst.device)
+                v0 = self._initial_visits(specs, nv, gen.image.device)
                 out = gen.image.walk(
                     int(tickets[0].steps), backend=self._backend, visits0=v0,
                 )

@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from repro_torch.configs import h2o_danube_1_8b, two_tower_retrieval
-from repro_torch.core import (REPRESENTATIONS, DiGraph, bitset, csr, edgebatch, traversal,
-                              updates, util, walk_image)
+from repro_torch.core import (REPRESENTATIONS, DiGraph, bitset, csr, distributed, edgebatch,
+                              traversal, updates, util, walk_image)
 from repro_torch.io import synthetic
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
@@ -92,6 +92,12 @@ def test_serving_imports_neither_jax_nor_repro(module):
     _imports_alone(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.distributed",
+                                    "repro_torch.kernels.slot_walk.sharded"])
+def test_sharded_graph_imports_neither_jax_nor_repro(module):
+    _imports_alone(module)
+
+
 def test_chip_smoke_imports_only_the_port():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -122,7 +128,8 @@ REPS = ["coo", "lazy", "chunked", "vector2d"]
     "entry",
     ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree", "init_model",
      "init_cache", "from_jax_params", "from_dense", "recover", "bitset.make", "build_rep",
-     "seed_visits_row", "serve.main"]
+     "seed_visits_row", "serve.main", "shard_csr", "sharded.from_state_trees",
+     "sharded.restore", "image_from_state_tree"]
     + [f"{r}.{e}" for r in REPS for e in ("from_csr", "from_state_tree")],
 )
 def test_default_device_raises_without_gpu(entry):
@@ -150,6 +157,13 @@ def test_default_device_raises_without_gpu(entry):
         "build_rep": lambda: launch_serve.build_rep(scale=3),
         "seed_visits_row": lambda: launch_serve.seed_visits_row(4, [1]),
         "serve.main": lambda: launch_serve.main(["--scale", "3", "--requests", "1"]),
+        "shard_csr": lambda: distributed.shard_csr(c, 2),
+        "sharded.from_state_trees": lambda: distributed.ShardedGraph.from_state_trees(
+            distributed.shard_csr(c, 2, device="cpu").state_trees()),
+        # raises before it reads a directory
+        "sharded.restore": lambda: distributed.ShardedGraph.restore("no-ckpt"),
+        "image_from_state_tree": lambda: distributed.image_from_state_tree(
+            distributed.shard_csr(c, 2, device="cpu").state_trees()[0]),
     }
     for r in REPS:
         cls = REPRESENTATIONS[r]
@@ -284,4 +298,19 @@ def test_cpu_slice_launches_no_kernel():
     model = tm.init_model(lm, generator=torch.Generator().manual_seed(2), device="cpu")
     logits, _ = model(torch.from_numpy(rng.integers(0, lm.vocab, (2, 32))))
     assert logits.shape == (2, 32, lm.vocab) and bool(torch.isfinite(logits).all())
+    assert all(k.launches == 0 for k in KERNELS.values())
+
+
+def test_cpu_sharded_graph_launches_no_kernel():
+    """A sharded graph on CPU tensors: routed patches and walks take the
+    plain versions, and no wrapper counts a launch."""
+    for k in KERNELS.values():
+        k.launches = 0
+    c = synthetic.make_graph("social", scale=7, edge_factor=4, seed=5, device="cpu")
+    g = distributed.shard_csr(c, 4, device="cpu")
+    rng = np.random.default_rng(5)
+    g.apply(updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 30),
+                                deletes=edgebatch.random_deletions(rng, c, 30)))
+    assert g.reverse_walk(3).shape == (c.n,) and g.device.type == "cpu"
+    assert g.seal_generation(1).walk(2, visits0=torch.ones((2, c.n))).shape == (2, c.n)
     assert all(k.launches == 0 for k in KERNELS.values())

@@ -1100,3 +1100,88 @@ def test_served_batches_on_card_match_oracle(cuda, port_faults):
     torn, checked = launch_serve.count_torn_reads(
         launch_serve.GenerationOracle(c), walks, upds)
     assert torn == 0 and checked == 128
+
+
+# -- the sharded graph in local mode on the card (-k sharded) -----------------
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_sharded_walk_cuda_matches_plain(cuda, n_shards):
+    """The sharded walk through the tile_cumsum kernel (one launch a healthy
+    shard a step) against its backend="torch" twin and the DiGraph image
+    walk of the same CSR, one walk and a batch of 16."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels.slot_walk import kernel as swk
+
+    c = synthetic.make_graph("social", scale=12, edge_factor=8, seed=n_shards, device=cuda)
+    g = dist.shard_csr(c, n_shards, device=cuda)
+    plain = {"n": 0}
+    inner = swk.tile_cumsum_torch
+
+    def spy(vals):
+        plain["n"] += 1
+        return inner(vals)
+
+    before = KERNELS["tile_cumsum"].launches
+    swk.tile_cumsum_torch = spy
+    try:
+        vk = g.reverse_walk(6, backend="cuda")
+    finally:
+        swk.tile_cumsum_torch = inner
+    assert KERNELS["tile_cumsum"].launches == before + 6 * n_shards and plain["n"] == 0
+    vp = g.reverse_walk(6, backend="torch")
+    vi = DiGraph.from_csr(c, device=cuda).to_walk_image().walk(6)
+    scale = float(vp.abs().max())
+    torch.testing.assert_close(vk, vp, rtol=5e-4, atol=1e-6 * scale)
+    torch.testing.assert_close(vk, vi, rtol=5e-4, atol=1e-6 * scale)
+    v0 = torch.from_numpy(np.random.default_rng(n_shards).random((16, c.n), np.float32)).to(cuda)
+    bk = g.reverse_walk(4, visits0=v0)
+    bp = g.reverse_walk(4, visits0=v0, backend="torch")
+    assert bk.shape == (16, c.n) and bk.device.type == "cuda"
+    torch.testing.assert_close(bk, bp, rtol=5e-4, atol=1e-6 * float(bp.abs().max()))
+    g.quarantine(0)  # a down shard runs no step: its rows read exact zeros
+    before = KERNELS["tile_cumsum"].launches
+    vd = g.reverse_walk(2)
+    assert KERNELS["tile_cumsum"].launches == before + 2 * (n_shards - 1)
+    assert bool((vd[g.down_rows()] == 0).all())
+
+
+def test_sharded_apply_and_parallel_recovery_on_card(cuda, tmp_path, port_faults):
+    """Routed applies through merge_rows_fused gather to the DiGraph's CSR
+    after the same plans; a crash at durable.post_append recovers on the
+    card with the parallel replay, every shard's state_trees() bit for bit
+    against a card twin."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.runtime import durable
+
+    c = synthetic.make_graph("social", scale=11, edge_factor=8, seed=21, device=cuda)
+    rng = np.random.default_rng(21)
+    plans = [updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 200),
+                                 deletes=edgebatch.random_deletions(rng, c, 200))
+             for _ in range(4)]
+    wal, ck = str(tmp_path / "wal"), str(tmp_path / "ckpt")
+    dg = durable.DurableGraph(dist.shard_csr(c, 4, device=cuda), wal, ck, diff=True)
+    twin = dist.shard_csr(c, 4, device=cuda)
+    ref = DiGraph.from_csr(c, device=cuda)
+    before = KERNELS["merge_rows_fused"].launches
+    dg.apply(plans[0])
+    dg.checkpoint()
+    dg.apply(plans[1])
+    with port_faults.injected("durable.post_append"):
+        with pytest.raises(port_faults.SimulatedCrash):
+            dg.apply(plans[2])
+    dg.close()
+    assert KERNELS["merge_rows_fused"].launches > before
+    for plan in plans[:3]:
+        twin.apply(plan)
+        ref.apply(plan)
+    got, exp = dist.gather_csr(twin), ref.to_csr()
+    for f in ("offsets", "dst", "wgt"):
+        assert torch.equal(getattr(got, f), getattr(exp, f)), f
+    r = durable.DurableGraph.recover(wal, ck, device=cuda, parallel=True, diff=True)
+    assert r.rep.device.type == "cuda" and r.seq == 3
+    assert r.rep.generation == twin.generation == 0
+    a, b = r.rep.state_trees(), twin.state_trees()
+    for s in b:
+        for k in b[s]:
+            np.testing.assert_array_equal(a[s][k], b[s][k], err_msg=f"shard {s}: {k}")
+    assert torch.equal(r.reverse_walk(4), twin.reverse_walk(4))
+    r.close()
