@@ -149,6 +149,26 @@ SNAP's soc-LiveJournal1):
           (batch 128 against a 4,096-slot bfloat16 ring filled from the
           seed, 8 greedy steps timed); prefill against 64 decode steps in
           float32
+  gnn_train
+          (run first, right after the build, on an empty card)
+          the GNN family trained at each config's FULL width through
+          launch.steps.build_cell (the build and the steps counted as the
+          main path): gcn-cora on ogb_products (2,449,408 nodes, 61,859,328
+          edges, 3 AdamW steps), graphcast on minibatch_lg (a 233,472-vertex,
+          114,616,320-edge CSR built on the card by from_coo, 1,024 seeds
+          sampled 15-10 a step, 16 layers at d = 512 in float32, 2 steps),
+          schnet and mace on molecule (128 molecules of 30 atoms and 64
+          edges, 2 steps, and MACE's forces); every aggregate one
+          edge_segment_runs launch after a stable sort of its destinations
+          (counted; the plain pieces never called; one sort a graph, or a
+          step for the sampled subgraph).  Each step timed by CUDA events,
+          with the cell's peak memory; the losses finite and the parameters
+          changed; the first step's loss and the model's outputs against
+          the same through the plain segment sum on the card (float32,
+          within 1e-5), two forwards bit for bit; the largest aggregate of
+          each cell timed (kernel, op, sort) beside index_add_ on the same
+          messages and held against it within 2*gamma(deg)*sum|terms|; the
+          SMOKE gcn-cora cell's steps on the card against the CPU
 
 then holds each kernel against its plain PyTorch version at the shapes its
 path gave it and times both.  The line before the last is
@@ -263,6 +283,14 @@ HUB_DEGREE = 128
 #: repro's own check (tests/test_models.py:46; the bfloat16 cache rounds
 #: K and V that forward keeps in float32)
 PD_LEN, PD_BATCH, PD_TOL = 64, 2, 2e-2
+#: the gnn_train phase: (arch, shape, train steps), each at its config's
+#: FULL width, built by launch.steps.build_cell as a user builds it
+GNN_CELLS = (("gcn-cora", "ogb_products", 3), ("graphcast", "minibatch_lg", 2),
+             ("schnet", "molecule", 2), ("mace", "molecule", 2))
+#: a model through the kernel against the same model through the plain
+#: segment sum on the card (float32; only the sums' order differs): the
+#: loss within this of itself, the outputs within this of their max|.|
+GNN_RTOL = 1e-5
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -1337,6 +1365,191 @@ def sharded_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> N
         torch.cuda.empty_cache()
 
 
+def gnn_runs_a_step(model: str, cfg) -> int:
+    """edge_segment_runs launches a train step: one a segment sum of the
+    forward (the backward is a gather).  GCN and GraphCast sum once a layer,
+    SchNet once an interaction and once for the per-graph energies, MACE
+    three times a layer (scalar, vector, tensor messages) and once for the
+    energies."""
+    if model == "schnet":
+        return cfg.n_interactions + 1
+    if model == "mace":
+        return 3 * cfg.n_layers + 1
+    return cfg.n_layers
+
+
+def clone_state(state):
+    """A copy of a train state whose parameters require grad, as the
+    cell's own do."""
+    from repro_torch.core import tree
+
+    out = tree.tree_map(lambda t: t.detach().clone(), state)
+    tree.tree_map(lambda t: t.requires_grad_(), out["params"])
+    return out
+
+
+def gnn_train_phase(launches: dict, times: dict, dev, card: str) -> None:
+    """The gnn_train phase (see the module docstring): each of ``GNN_CELLS``
+    built by ``launch.steps.build_cell`` at FULL width and trained a few
+    steps, the build and the steps counted as the main path."""
+    from repro_torch.core import tree, util
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.edge_segment_sum import kernel as seg_kernel
+    from repro_torch.launch import steps as gnn_steps
+    from repro_torch.models.gnn import common as gnn_common
+    from repro_torch.models.gnn import mace as gnn_mace
+
+    torch.cuda.empty_cache()
+    say("gnn_train", resident_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+        card=f"'{card}'")
+    plain_parts = ("pad", "edge_segment_partials_torch", "fold_live")
+    keep_agg = lambda args, kwargs: ((args[0].detach(), args[1], args[2]), {})  # noqa: E731
+    for arch, shape, n_steps in GNN_CELLS:
+        c0 = time.perf_counter()
+        name = f"{arch}/{shape}"
+        sorts0 = gnn_common.edge_order.sorts
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: the cell as a user builds it, then its train steps
+        with counted(KERNELS, launches), count_calls(seg_kernel, plain_parts) as plain_calls:
+            t0 = sync_now()
+            cell = gnn_steps.build_cell(arch, shape, device=dev, seed=SEED)
+            build_s = sync_s(t0)
+            state, batch = cell.args
+            cfg, model = cell.meta["cfg"], cell.meta["module"].__name__.rsplit(".", 1)[1]
+            init = clone_state(state)
+            sampled = "n_sub" in cell.meta
+            spans, losses = [], []
+            t0 = sync_now()
+            for _ in range(n_steps):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                state, metrics = cell.step_fn(state, batch)
+                ev[1].record()
+                spans.append(ev)
+                losses.append(metrics["loss"])
+            steps_s = sync_s(t0)
+            runs = gnn_runs_a_step(model, cfg)
+            expect_launches("edge_segment_runs", n_steps * runs, f"gnn_train/{name}")
+            # GCN's degree counts (once a graph); the minibatch_lg CSR's build
+            expect_launches("degree_offsets", int(model == "gcn") + int(sampled),
+                            f"gnn_train/{name}")
+        peak_gb = (torch.cuda.max_memory_allocated() - resident) / 1e9  # the cell's own
+        step_ms = [a_.elapsed_time(b_) for a_, b_ in spans]
+        sorts = gnn_common.edge_order.sorts - sorts0
+        if any(plain_calls.values()):
+            raise AssertionError(f"gnn_train/{name}: the kernel path called {plain_calls}")
+        losses = [float(x) for x in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"gnn_train/{name}: losses {losses}")
+        if all(torch.equal(a_, b_) for a_, b_ in zip(tree.leaves(init["params"]),
+                                                     tree.leaves(state["params"]))):
+            raise AssertionError(f"gnn_train/{name}: no parameter changed")
+        # one sort an id tensor: the destinations, and the graph ids of the
+        # per-graph energies; once a graph, or once a step for a subgraph
+        want_sorts = (1 + int(model in ("schnet", "mace"))) * (n_steps if sampled else 1)
+        if sorts != want_sorts:
+            raise AssertionError(f"gnn_train/{name}: {sorts} sorts, expected {want_sorts}")
+        # the first step against the same step through the plain segment sum
+        # on the card, from the same weights; the outputs twice (same bits),
+        # the first keeping the messages of its largest aggregate
+        with torch.no_grad():
+            with largest_call(gnn_common, "segment_sum", lambda a: a[0].numel(),
+                              keep_agg) as agg:
+                out = cell.forward(init["params"], batch)
+            same_bits = torch.equal(out, cell.forward(init["params"], batch))
+            out_p = cell.forward(init["params"], batch, backend="torch")
+        if not same_bits:
+            raise AssertionError(f"gnn_train/{name}: two forwards gave other bits")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"gnn_train/{name}: non-finite outputs")
+        out_scale = float(out_p.abs().max())
+        out_diff = float((out - out_p).abs().max())
+        if out_diff > GNN_RTOL * out_scale:
+            raise AssertionError(f"gnn_train/{name}: outputs {out_diff:.3e} from the plain "
+                                 f"sum's (max|out| {out_scale:.3e})")
+        del out, out_p
+        _, metrics_p = cell.with_backend("torch")(init, batch)
+        loss_p = float(metrics_p["loss"])
+        if abs(losses[0] - loss_p) > GNN_RTOL * abs(loss_p):
+            raise AssertionError(f"gnn_train/{name}: loss {losses[0]} against the plain "
+                                 f"sum's {loss_p}")
+        del init, metrics_p
+        extra = {}
+        if model == "mace":
+            f = gnn_mace.forces(state["params"], cell.meta["graph"](batch), cfg)
+            if tuple(f.shape) != (cell.meta["n"], 3) or not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"gnn_train/{name}: forces not finite of shape (n, 3)")
+            extra["forces_max_abs"] = f"{float(f.abs().max()):.3e}"
+            del f
+        # the largest aggregate of the steps: the kernel on its sorted
+        # messages, the op (gather + kernel), the sort, index_add_ on the
+        # messages as the model made them; op against index_add_ within
+        # 2*gamma(deg)*sum|terms| (each sum within gamma of the exact one)
+        vals, seg, num = agg["args"]
+        order = gnn_common.edge_order(seg, num)
+        flat = vals.reshape(vals.shape[0], -1).float()
+        e_agg, d_agg = flat.shape
+        srt = flat.index_select(0, order.perm)
+        key = order.key.long()
+        lib_fn = lambda: torch.zeros((num + 1, d_agg), device=flat.device).index_add_(  # noqa: E731
+            0, key, flat)
+        got = gnn_common.segment_sum(vals, seg, num).reshape(num, -1).double()
+        lib = lib_fn()[:num].double()
+        absum = torch.zeros((num + 1, d_agg), device=flat.device).index_add_(
+            0, key, flat.abs())[:num].double()
+        deg = order.counts().double()[:, None]
+        gamma = deg * U / (1 - deg * U)
+        if not bool(((got - lib).abs() <= 2 * gamma * absum * (1 + gamma)).all()):
+            raise AssertionError(f"gnn_train/{name}: the aggregate exceeds 2*gamma(deg)*"
+                                 "sum|terms| from index_add_")
+        agg_err = float((got - lib).abs().max())
+        del got, lib, absum, deg, gamma
+        agg_times = dict(
+            agg_kernel_ms=time_ms(lambda: seg_kernel.edge_segment_runs(order.rows, srt, num)),
+            agg_op_ms=time_ms(lambda: gnn_common.segment_sum(vals, seg, num)),
+            agg_sort_ms=time_ms(lambda: gnn_common.EdgeOrder(seg, num), reps=5),
+            agg_index_add_ms=time_ms(lib_fn, reps=5))
+        agg_bytes = 4 * e_agg + 4 * d_agg * e_agg + 4 * d_agg * num
+        times[f"gnn_{arch}_step_ms"] = step_ms[-1]
+        sizes = {k_: cell.meta[k_] for k_ in ("n", "e", "n_sub") if k_ in cell.meta}
+        say("gnn_train", cell=name, **sizes,
+            config=",".join(f"{k_}={getattr(cfg, k_)}" for k_ in (
+                "d_in", "d_hidden", "n_layers", "n_interactions", "remat", "bf16",
+                "edge_chunks") if hasattr(cfg, k_)),
+            build_s=f"{build_s:.2f}", steps=n_steps,
+            step_ms="/".join(f"{x:.2f}" for x in step_ms), steps_host_s=f"{steps_s:.3f}",
+            losses="/".join(f"{x:.6g}" for x in losses), peak_gb=f"{peak_gb:.3f}",
+            edge_segment_runs_a_step=runs, sorts=sorts,
+            loss_vs_plain=f"{abs(losses[0] - loss_p):.3e}",
+            out_max_abs_diff_vs_plain=f"{out_diff:.3e}", out_scale=f"{out_scale:.3e}",
+            bit_identical_forwards=2, plain_parts_called=0, **extra,
+            agg_E=e_agg, agg_D=d_agg, agg_n=num,
+            **{k_: f"{v_:.4f}" for k_, v_ in agg_times.items()},
+            agg_bound_ms=f"{agg_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+            agg_max_abs_diff_vs_index_add=f"{agg_err:.3e}",
+            wall_s=f"{time.perf_counter() - c0:.1f}")
+        del cell, state, batch, agg, vals, seg, flat, srt, key, order, lib_fn
+        torch.cuda.empty_cache()
+    # a small input: the SMOKE GCN cell's steps on the card against the CPU
+    cells = {d_: gnn_steps.build_cell("gcn-cora", "full_graph_sm", reduced=True, device=d_)
+             for d_ in (dev, torch.device("cpu"))}
+    with torch.no_grad():
+        tree.tree_map(lambda t, v: t.copy_(v), cells[dev].args[0]["params"],
+                      cells[torch.device("cpu")].args[0]["params"])
+    small = {}
+    for d_, c_ in cells.items():
+        st, b_ = c_.args
+        small[d_.type] = [float(c_.step_fn(st, b_)[1]["loss"]) for _ in range(3)]
+    np.testing.assert_allclose(small[dev.type], small["cpu"], rtol=GNN_RTOL)
+    for (k_, a_), (_, b_) in zip(tree.paths(cells[dev].args[0]["params"]),
+                                 tree.paths(cells[torch.device("cpu")].args[0]["params"])):
+        np.testing.assert_allclose(util.host(a_), util.host(b_), rtol=1e-5, atol=1e-6,
+                                   err_msg=f"gnn_train/smoke: {k_}")
+    say("gnn_train", smoke="gcn-cora SMOKE, 3 steps on the card agree with the CPU "
+        "(losses rtol 1e-5, params rtol 1e-5 atol 1e-6)")
+
+
 def serve_phase(g, launches: dict, times: dict, dev, card: str) -> None:
     """The serve phase (see the module docstring).  ``g`` is the social
     DiGraph on the card; every level serves a clone of it, so ``g`` stays
@@ -1603,6 +1816,18 @@ def main() -> None:
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), build_s=f"{time.perf_counter() - t0:.2f}")
 
+    # main path: its calls run inside ``counted``; the checks between them
+    # (host engine, plain twin, warm-up, normalised walks) launch outside it
+    launches = dict.fromkeys(KERNELS, 0)
+    times = {}
+    phase_s = {}
+
+    # 1b. gnn_train (the GNN family trained at full width) first, on an
+    # empty card: GraphCast's float32 activations take ~56 GB ------------
+    p0 = time.perf_counter()
+    gnn_train_phase(launches, times, dev, smi)
+    phase_s["gnn_train_s"] = time.perf_counter() - p0
+
     # 2. graph -------------------------------------------------------------
     t0 = sync_now()
     src, dst, wgt, n = synthetic.make_coo(
@@ -1615,12 +1840,6 @@ def main() -> None:
     say("graph", kind="social", scale=SCALE, n=n, m_raw=src.shape[0], m=c.m,
         max_degree=int(c.degrees.max()), host_gen_s=f"{gen_s:.1f}",
         host_dedup_s=f"{dedup_s:.1f}")
-
-    # main path: its calls run inside ``counted``; the checks between them
-    # (host engine, plain twin, warm-up, normalised walks) launch outside it
-    launches = dict.fromkeys(KERNELS, 0)
-    times = {}
-    phase_s = {}
 
     # 3. load (paper task 1) --------------------------------------------
     # warm-up: the process's first device build, timed as the cold call

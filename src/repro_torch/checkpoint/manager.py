@@ -41,6 +41,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core import tree as tree_mod
+
 #: Dirty-block granularity of differential checkpoints.  16 KiB keeps
 #: manifests small (one digest per chunk) while a single-row patch still
 #: persists only a few chunks of the slot arrays.
@@ -99,35 +101,6 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{int(step):010d}")
 
 
-def _flatten_with_paths(tree, path=()) -> list:
-    """``[(key, leaf), ...]`` of a nest of dicts, lists and tuples.
-
-    Keys are ``repro``'s (``jax.tree_util`` paths): the dict key or the
-    sequence index of each level, joined with ``/``; dict keys are visited
-    in sorted order and ``None`` holds no leaf, as in JAX.
-    """
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree) for kv in _flatten_with_paths(tree[k], path + (k,))]
-    if isinstance(tree, (list, tuple)):
-        if hasattr(tree, "_fields"):
-            raise TypeError("checkpoint: named tuples are not supported in a tree")
-        return [kv for i, x in enumerate(tree) for kv in _flatten_with_paths(x, path + (i,))]
-    return [("/".join(str(p) for p in path), tree)]
-
-
-def _unflatten_like(like, leaves: dict, path=()):
-    """A tree shaped like ``like`` whose leaves are ``leaves[key]``."""
-    if like is None:
-        return None
-    if isinstance(like, dict):
-        return {k: _unflatten_like(v, leaves, path + (k,)) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten_like(x, leaves, path + (i,)) for i, x in enumerate(like))
-    return leaves["/".join(str(p) for p in path)]
-
-
 def save(
     ckpt_dir: str,
     step: int,
@@ -137,7 +110,7 @@ def save(
     shard_id: int = 0,
 ) -> str:
     """Write checkpoint for ``step``; atomic rename; rotate old ones."""
-    arrays = {k: _host_array(k, v) for k, v in _flatten_with_paths(tree)}
+    arrays = {k: _host_array(k, v) for k, v in tree_mod.paths(tree)}
     return save_arrays(ckpt_dir, step, arrays, keep=keep, shard_id=shard_id)
 
 
@@ -663,7 +636,7 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None) -> tuple[An
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     d = _step_dir(ckpt_dir, step)
     manifest = _read_manifest(d)
-    want = dict(_flatten_with_paths(like))
+    want = dict(tree_mod.paths(like))
     missing = set(want) - set(manifest["keys"])
     extra = set(manifest["keys"]) - set(want)
     if missing or extra:
@@ -675,13 +648,15 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None) -> tuple[An
                 raise ValueError(f"shape mismatch for {k}: {data[k].shape} vs {np.shape(leaf)}")
         for k, leaf in want.items():
             v = data[k]
+            # ascontiguousarray makes a 0-d array 1-d: keep the stored shape
             if isinstance(leaf, torch.Tensor):
-                v = torch.from_numpy(np.ascontiguousarray(v)).to(device=leaf.device,
-                                                                 dtype=leaf.dtype)
+                v = torch.from_numpy(np.ascontiguousarray(v).reshape(v.shape)).to(
+                    device=leaf.device, dtype=leaf.dtype)
             elif hasattr(leaf, "dtype"):
-                v = torch.from_numpy(np.ascontiguousarray(v, dtype=leaf.dtype))
+                v = torch.from_numpy(
+                    np.ascontiguousarray(v, dtype=leaf.dtype).reshape(v.shape))
             leaves[k] = v
-    return _unflatten_like(like, leaves), int(step)
+    return tree_mod.unflatten(like, (leaves[k] for k, _ in tree_mod.paths(like))), int(step)
 
 
 def checkpoint_hook(ckpt_dir: str, every: int, *, keep: int = 3):

@@ -7,6 +7,7 @@ vocab=32000 — llama+mistral mix, sliding-window attention
 import torch
 
 from ..models.transformer.config import TransformerConfig
+from . import base
 
 FULL = TransformerConfig(
     name="h2o-danube-1.8b",
@@ -34,4 +35,15 @@ SMOKE = TransformerConfig(
     sliding_window=16,
     attn_impl="ref",
     compute_dtype=torch.float32,
+)
+
+base.register(
+    base.ArchEntry(
+        name="h2o-danube-1.8b",
+        family="lm",
+        full=FULL,
+        smoke=SMOKE,
+        model="transformer",
+        # SWA is sub-quadratic: long_500k RUNS for this arch (ring cache)
+    )
 )

@@ -1,6 +1,7 @@
 """two-tower-retrieval [recsys]: embed_dim=256 tower_mlp=1024-512-256
 interaction=dot — sampled-softmax retrieval [RecSys'19 (YouTube); unverified]."""
 from ..models.recsys.two_tower import TwoTowerConfig
+from . import base
 
 FULL = TwoTowerConfig(
     name="two-tower-retrieval",
@@ -21,4 +22,14 @@ SMOKE = TwoTowerConfig(
     n_user_fields=2,
     n_item_fields=2,
     bag_size=4,
+)
+
+base.register(
+    base.ArchEntry(
+        name="two-tower-retrieval",
+        family="recsys",
+        full=FULL,
+        smoke=SMOKE,
+        model="two_tower",
+    )
 )

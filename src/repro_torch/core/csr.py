@@ -84,11 +84,22 @@ def from_coo(
     as in ``repro``.  ``presorted=True`` says the edges are already in
     (src, dst) order (an MTX file in CSR order): every engine then skips
     its sort; ``None`` means unknown (the host engine checks, the device
-    engines sort).
+    engines sort).  Ids given as tensors already on a CUDA ``device``
+    (with ``n``) go to a device engine's build as they are, without a
+    copy through the host.
     """
     from ..kernels.csr_build import ops as _build_ops
 
     dev = util.resolve_device(device)
+    if (isinstance(src, torch.Tensor) and isinstance(dst, torch.Tensor)
+            and src.device == dst.device == dev and dev.type != "cpu"
+            and sort and not dedup and engine != "host" and n is not None):
+        # ids already on the card: the device build reads them there, with
+        # no round trip through the host
+        w_t = None if wgt is None else torch.as_tensor(wgt, dtype=torch.float32, device=dev)
+        return _build_device(src.to(torch.int32), dst.to(torch.int32), w_t, n=int(n),
+                             engine=_build_ops.default_engine(dev) if engine == "auto"
+                             else engine, presorted=bool(presorted))
     src = np.asarray(util.host(src), dtype=np.int64)
     dst_a = np.asarray(util.host(dst), dtype=np.int64)
     w = np.asarray(util.host(wgt), dtype=np.float32) if wgt is not None else None

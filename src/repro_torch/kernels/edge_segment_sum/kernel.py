@@ -11,7 +11,9 @@ the rank fold around it.
 
 Its plain version is the TPU formulation, ``edge_segment_sum_torch``: pad
 the edges to whole tiles (``pad``), reduce each tile to per-rank partials
-(``edge_segment_partials_torch``), fold the live ranks (``fold_live``).
+(``edge_segment_partials_torch``), fold the live ranks (``fold_live``).  It
+sums in float32, or in float64 for float64 values (so a gradient check can
+run through it).
 The wrapper launches the CUDA kernels for CUDA tensors and uses the plain
 version only for CPU tensors; its ``launches`` attribute counts its
 launches (one a call: both kernels).
@@ -35,9 +37,14 @@ def edge_segment_partials_torch(rows: torch.Tensor, vals: torch.Tensor, sink: in
     rows outside [0, sink)).
     """
     rank, rank_rows = tile_ranks(rows, sink)
-    partials = torch.zeros_like(vals, dtype=torch.float32)
+    partials = torch.zeros_like(vals, dtype=_acc(vals))
     partials.scatter_add_(1, rank[:, :, None].expand(vals.shape), vals)
     return partials, rank_rows
+
+
+def _acc(vals: torch.Tensor) -> torch.dtype:
+    """The plain version's sum type: float64 for float64 values, else float32."""
+    return torch.float64 if vals.dtype == torch.float64 else torch.float32
 
 
 def pad(rows: torch.Tensor, vals: torch.Tensor, num_segments: int):
@@ -48,7 +55,7 @@ def pad(rows: torch.Tensor, vals: torch.Tensor, num_segments: int):
     sink = num_segments
     rows_p = torch.full((t * EB,), sink, dtype=torch.int32, device=vals.device)
     rows_p[:e] = torch.clamp(rows, max=sink)
-    vals_p = torch.zeros((t * EB, d), dtype=torch.float32, device=vals.device)
+    vals_p = torch.zeros((t * EB, d), dtype=_acc(vals), device=vals.device)
     vals_p[:e] = vals
     return rows_p.reshape(t, EB), vals_p.reshape(t, EB, d)
 
@@ -64,7 +71,7 @@ def fold_live(part: torch.Tensor, rank_rows: torch.Tensor,
     """
     rank = rank_rows.reshape(-1)
     sel = torch.nonzero(rank < num_segments).squeeze(1)
-    out = torch.zeros((num_segments, part.shape[-1]), dtype=torch.float32,
+    out = torch.zeros((num_segments, part.shape[-1]), dtype=part.dtype,
                       device=part.device)
     return out.index_add_(0, rank.index_select(0, sel),
                           part.reshape(-1, part.shape[-1]).index_select(0, sel))
@@ -75,7 +82,7 @@ def edge_segment_sum_torch(rows: torch.Tensor, vals: torch.Tensor,
     """Plain version: ``pad``, the tile partials, ``fold_live``."""
     e, d = vals.shape
     if e == 0:
-        return torch.zeros((num_segments, d), dtype=torch.float32, device=vals.device)
+        return torch.zeros((num_segments, d), dtype=_acc(vals), device=vals.device)
     part, rank = edge_segment_partials_torch(*pad(rows, vals, num_segments), num_segments)
     return fold_live(part, rank, num_segments)
 

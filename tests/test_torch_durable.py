@@ -33,6 +33,7 @@ from repro.runtime import faultinject as j_fi
 import repro_torch.core as T
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.core import csr, edgebatch, updates
+from repro_torch.core import tree as tree_mod
 from repro_torch.runtime import durable, faultinject
 
 N_V = 48
@@ -811,7 +812,7 @@ def test_pytree_checkpoints_across_packages(tmp_path):
     tree = {"enc": {"w": np.arange(12, dtype=np.float32).reshape(3, 4),
                     "layers": [np.ones(2, np.int32), (np.float32(2.5), np.arange(3, dtype=np.int32))]},
             "step": np.int32(9), "empty": np.zeros((0, 2), np.float32)}
-    assert [k for k, _ in ckpt._flatten_with_paths(tree)] == list(
+    assert [k for k, _ in tree_mod.paths(tree)] == list(
         j_ckpt._flatten_with_paths(tree)[0])
     ckpt.save(str(tmp_path / "port"), 3, tree)
     j_ckpt.save(str(tmp_path / "repro"), 3, tree)
@@ -820,9 +821,9 @@ def test_pytree_checkpoints_across_packages(tmp_path):
         got, step = ckpt.restore(d, tree)
         jgot, jstep = j_ckpt.restore(d, tree)
         assert step == jstep == 3
-        for (k, a), (_, b), (_, want) in zip(ckpt._flatten_with_paths(got),
-                                             ckpt._flatten_with_paths(jgot),
-                                             ckpt._flatten_with_paths(tree)):
+        for (k, a), (_, b), (_, want) in zip(tree_mod.paths(got),
+                                             tree_mod.paths(jgot),
+                                             tree_mod.paths(tree)):
             assert a.dtype == torch.from_numpy(np.asarray(want)).dtype, k
             np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=k)
             np.testing.assert_array_equal(a.numpy(), np.asarray(want), err_msg=k)

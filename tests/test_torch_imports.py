@@ -33,6 +33,9 @@ from repro_torch.kernels.slot_walk import kernel as sw_kernel
 from repro_torch.models.recsys import two_tower
 from repro_torch.models.transformer import model as tm
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import steps as launch_steps
+from repro_torch.launch import train as launch_train
+from repro_torch.models.gnn import gcn, graphcast, mace, schnet
 from repro_torch.runtime import durable
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -98,6 +101,19 @@ def test_sharded_graph_imports_neither_jax_nor_repro(module):
     _imports_alone(module)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.train.optimizer", "repro_torch.train.loop", "repro_torch.core.tree",
+    "repro_torch.models.gnn.common", "repro_torch.models.gnn.gcn",
+    "repro_torch.models.gnn.schnet", "repro_torch.models.gnn.graphcast",
+    "repro_torch.models.gnn.mace", "repro_torch.sampling.neighbor",
+    "repro_torch.configs.base", "repro_torch.configs.gcn_cora",
+    "repro_torch.configs.graphcast", "repro_torch.configs.mace",
+    "repro_torch.configs.schnet", "repro_torch.launch.steps", "repro_torch.launch.train",
+])
+def test_gnn_training_imports_neither_jax_nor_repro(module):
+    _imports_alone(module)
+
+
 def test_chip_smoke_imports_only_the_port():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -122,6 +138,8 @@ def test_chip_smoke_fails_without_a_gpu(capsys):
 
 
 REPS = ["coo", "lazy", "chunked", "vector2d"]
+GNNS = {"gcn": gcn, "schnet": schnet, "graphcast": graphcast, "mace": mace}
+GNN_ARCHS = {"gcn": "gcn-cora", "schnet": "schnet", "graphcast": "graphcast", "mace": "mace"}
 
 
 @pytest.mark.parametrize(
@@ -129,8 +147,9 @@ REPS = ["coo", "lazy", "chunked", "vector2d"]
     ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree", "init_model",
      "init_cache", "from_jax_params", "from_dense", "recover", "bitset.make", "build_rep",
      "seed_visits_row", "serve.main", "shard_csr", "sharded.from_state_trees",
-     "sharded.restore", "image_from_state_tree"]
-    + [f"{r}.{e}" for r in REPS for e in ("from_csr", "from_state_tree")],
+     "sharded.restore", "image_from_state_tree", "build_cell", "train.main"]
+    + [f"{r}.{e}" for r in REPS for e in ("from_csr", "from_state_tree")]
+    + [f"{m}.{e}" for m in GNNS for e in ("init_model", "from_jax_params")],
 )
 def test_default_device_raises_without_gpu(entry):
     if torch.cuda.is_available():
@@ -164,7 +183,16 @@ def test_default_device_raises_without_gpu(entry):
         "sharded.restore": lambda: distributed.ShardedGraph.restore("no-ckpt"),
         "image_from_state_tree": lambda: distributed.image_from_state_tree(
             distributed.shard_csr(c, 2, device="cpu").state_trees()[0]),
+        "build_cell": lambda: launch_steps.build_cell("gcn-cora", "full_graph_sm", reduced=True),
+        "train.main": lambda: launch_train.main(["--arch", "gcn-cora", "--steps", "1"]),
     }
+    for name, mod in GNNS.items():
+        cfg = launch_steps.cfgbase.get(GNN_ARCHS[name]).smoke
+        params = mod.init_params(cfg, generator=torch.Generator(), device=torch.device("cpu"))
+        calls[f"{name}.init_model"] = lambda mod=mod, cfg=cfg: mod.init_model(
+            cfg, generator=torch.Generator())
+        calls[f"{name}.from_jax_params"] = lambda mod=mod, cfg=cfg, p=params: mod.from_jax_params(
+            p, cfg)
     for r in REPS:
         cls = REPRESENTATIONS[r]
         calls[f"{r}.from_csr"] = lambda cls=cls: cls.from_csr(c)

@@ -28,6 +28,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_update.ref import merge_rows_reference
 from repro_torch.kernels.slot_walk import kernel as sw_kernel
+from repro_torch.core import tree
+from repro_torch.launch import steps as gnn_steps
+from repro_torch.models.gnn import common as gnn_common
 from repro_torch.models.recsys import two_tower
 from repro_torch.models.transformer import model as tm
 
@@ -1185,3 +1188,93 @@ def test_sharded_apply_and_parallel_recovery_on_card(cuda, tmp_path, port_faults
             np.testing.assert_array_equal(a[s][k], b[s][k], err_msg=f"shard {s}: {k}")
     assert torch.equal(r.reverse_walk(4), twin.reverse_walk(4))
     r.close()
+
+
+# ---------------------------------------------------------------------------
+# GNN training (the edge segment sum on every aggregate)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("d", [1, 7, 16, 512, 1152])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gnn_segment_sum_cuda_matches_plain(cuda, d, dtype):
+    """The wrapped sum on unsorted destinations with sink edges in the
+    middle: the kernel after the stable sort against the plain version on
+    the card, within 2*gamma(deg)*sum|terms|; the same bits on two calls;
+    the backward (a gather) equal to the plain one."""
+    rng = np.random.default_rng(d)
+    n, e = 3000, 60_000 if d < 512 else 8_000
+    dst_np = rng.integers(0, n, e).astype(np.int32)
+    dst_np[::13] = n
+    dst_np[5:400] = 17  # a hub, unsorted among the rest
+    dst = torch.from_numpy(dst_np).to(cuda)
+    vals = torch.from_numpy(rng.standard_normal((e, d)).astype(np.float32)).to(cuda)
+    vals = vals.to(dtype).requires_grad_()
+    before = KERNELS["edge_segment_runs"].launches
+    out = gnn_common.segment_sum(vals, dst, n)
+    assert KERNELS["edge_segment_runs"].launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, d)
+    again = gnn_common.segment_sum(vals, dst, n)
+    assert torch.equal(out, again)
+    ref = gnn_common.segment_sum(vals, dst, n, backend="torch")
+    assert KERNELS["edge_segment_runs"].launches == before + 2
+    absum = gnn_common.segment_sum(vals.detach().abs().float(), dst, n, backend="torch")
+    deg = gnn_common.segment_counts(dst, n)[:, None].double()
+    gamma = deg * U / (1 - deg * U)
+    tol = 2 * gamma * absum.double()
+    if dtype == torch.bfloat16:  # each result rounded once to bfloat16
+        tol = tol + 2.0**-7 * ref.float().abs().double()
+    assert bool(((out.double() - ref.double()).abs() <= tol).all())
+    grad = torch.randn((n, d), device=cuda).to(dtype)
+    (g_k,) = torch.autograd.grad(out, vals, grad)
+    (g_p,) = torch.autograd.grad(ref, vals, grad)
+    assert torch.equal(g_k, g_p)
+    keep = (dst < n)[:, None]
+    assert torch.equal(g_k, torch.where(keep, grad[dst.clamp(max=n - 1).long()], 0).to(dtype))
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "graphcast"])
+def test_gnn_step_cuda_matches_cpu(cuda, arch):
+    """Three train steps of the SMOKE cell on the card against the same
+    steps on the CPU, from the same weights: losses rtol 1e-5, params rtol
+    1e-5 / atol 1e-6; one edge_segment_runs launch an aggregate."""
+    cells = {dev: gnn_steps.build_cell(arch, "full_graph_sm", reduced=True, device=dev)
+             for dev in ("cpu", "cuda")}
+    with torch.no_grad():
+        tree.tree_map(lambda t, v: t.copy_(v), cells["cuda"].args[0]["params"],
+                      cells["cpu"].args[0]["params"])
+    layers = cells["cpu"].meta["cfg"].n_layers
+    losses = {}
+    for dev, cell in cells.items():
+        state, batch = cell.args
+        before = {k: KERNELS[k].launches for k in ("edge_segment_runs", "degree_offsets")}
+        losses[dev] = []
+        for _ in range(3):
+            state, m = cell.step_fn(state, batch)
+            losses[dev].append(float(m["loss"]))
+        runs = KERNELS["edge_segment_runs"].launches - before["edge_segment_runs"]
+        offs = KERNELS["degree_offsets"].launches - before["degree_offsets"]
+        if dev == "cuda":
+            assert runs == 3 * layers
+            assert offs == (1 if arch == "gcn-cora" else 0)  # GCN's degrees, once
+        else:
+            assert runs == offs == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for (k, a), (_, b) in zip(tree.paths(cells["cuda"].args[0]["params"]),
+                              tree.paths(cells["cpu"].args[0]["params"])):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_from_coo_reads_device_ids_in_place(cuda):
+    """Ids already on the card go to the device build without the host:
+    the same CSR as from host arrays, one degree_offsets launch."""
+    rng = np.random.default_rng(17)
+    n = 5000
+    src = rng.integers(0, n, 80_000).astype(np.int32)
+    dst = rng.integers(0, n, 80_000).astype(np.int32)
+    want = csr.from_coo(src, dst, n=n, dedup=False, device=cuda)
+    before = KERNELS["degree_offsets"].launches
+    got = csr.from_coo(torch.from_numpy(src).to(cuda), torch.from_numpy(dst).to(cuda), n=n,
+                       dedup=False, device=cuda)
+    assert KERNELS["degree_offsets"].launches == before + 1
+    assert torch.equal(got.offsets, want.offsets) and torch.equal(got.dst, want.dst)
+    assert got.wgt is None and got.m == want.m
