@@ -169,6 +169,30 @@ SNAP's soc-LiveJournal1):
           each cell timed (kernel, op, sort) beside index_add_ on the same
           messages and held against it within 2*gamma(deg)*sum|terms|; the
           SMOKE gcn-cora cell's steps on the card against the CPU
+  lm_train
+          (run second, right after gnn_train, on an emptied card)
+          LM and two-tower training at full width and the large LMs'
+          prefills, each cell built by launch.steps.build_cell:
+          h2o-danube-1.8b train_4k at all 24 layers (remat, the blocked
+          attention, bf16 Adam moments), its step cut from 16 microbatches
+          of 16 x 4,096 tokens to 2 of 2 (2 AdamW steps, then one through
+          the int8 error-feedback compressor); qwen3-moe-235b-a22b cost1
+          (one layer at full width: 128 experts, top 8, bf16 params) train
+          on one 4,096-token sequence, its aux loss and dropped share; the
+          cost1 prefill_32k of qwen3-moe, arctic-480b (dense residual),
+          qwen2-72b (qkv bias) and mistral-large-123b (batch cut to 1) with
+          attn_impl="flash", one flash_attention launch each on the wgmma
+          kernel at D = 128 and GQA groups 16 / 7 / 8 / 12, each layer's
+          q/k/v held against the plain attention; qwen3-moe cost1
+          decode_32k (batch 128, 4 greedy steps against a 32,768-slot
+          cache filled from the seed); two-tower train_batch at FULL width
+          with both vocabularies cut to 5M rows and the batch to 16,384 (2
+          AdamW steps, two embedding_bag launches a step; the first step's
+          loss and sampled table-grad rows against the plain bag's, 1e-5 of
+          their max; the pooled fields against the plain bag).  Every step
+          timed by CUDA events, with the cell's peak memory, tokens/s and
+          the model FLOPs' share of 989 TFLOP/s; losses finite and every
+          parameter leaf changed
 
 then holds each kernel against its plain PyTorch version at the shapes its
 path gave it and times both.  The line before the last is
@@ -291,6 +315,28 @@ GNN_CELLS = (("gcn-cora", "ogb_products", 3), ("graphcast", "minibatch_lg", 2),
 #: segment sum on the card (float32; only the sums' order differs): the
 #: loss within this of itself, the outputs within this of their max|.|
 GNN_RTOL = 1e-5
+#: the lm_train phase: h2o-danube-1.8b's train_4k step at full depth, cut
+#: from repro's 16 microbatches of 16 x 4,096 tokens to H2O_ACCUM
+#: microbatches of H2O_UB sequences (16,384 tokens a step): H2O_STEPS AdamW
+#: steps, then one with the int8 error-feedback compressor
+H2O_UB, H2O_ACCUM, H2O_STEPS = 2, 2, 2
+#: qwen3-moe's cost1 train steps (the last timed: the first pays first-use
+#: costs) on one sequence of 4,096 tokens (repro: 16)
+MOE_TRAIN_UB, MOE_TRAIN_STEPS = 1, 2
+#: greedy decode steps of qwen3-moe's cost1 decode_32k (batch 128)
+MOE_DECODE_STEPS = 4
+#: the cost1 prefills through flash_attention at D = 128: (arch, GQA group)
+LARGE_PREFILLS = (("qwen3-moe-235b-a22b", 16), ("arctic-480b", 7), ("qwen2-72b", 8),
+                  ("mistral-large-123b", 12))
+#: two-tower train_batch at FULL width: both vocabularies cut from 10M rows
+#: (tables, their dense grads and float32 moments alone would take 81.9 GB)
+#: and the batch from 65,536 (its [B, B] logits and their grad 34 GB)
+TT_ROWS, TT_BATCH, TT_STEPS = 5_000_000, 16_384, 2
+#: sampled table-grad rows held against the plain bag's step
+TT_GRAD_ROWS = 256
+#: a train step through the bag kernel against the same through the plain
+#: bag on the card: the loss, and each grad sample within this of its max
+TT_RTOL = 1e-5
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -1550,6 +1596,390 @@ def gnn_train_phase(launches: dict, times: dict, dev, card: str) -> None:
         "(losses rtol 1e-5, params rtol 1e-5 atol 1e-6)")
 
 
+def lm_flops(cfg, n_seq: int, seq: int, train: bool) -> float:
+    """Model FLOPs of ``n_seq`` causal sequences of ``seq`` tokens: two a
+    multiply-add of every matrix a token touches (MoE: its routed experts;
+    the embedding is a gather) and 4*Hq*Dh a visible (query, key) pair; a
+    train step three times the forward."""
+    d, n_layers = cfg.d_model, cfg.n_layers
+    matmul = cfg.n_active_params() - cfg.vocab * d - (2 * n_layers + 1) * d
+    if cfg.qkv_bias:
+        matmul -= n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    attn = n_layers * n_seq * 4 * cfg.n_heads * cfg.head_dim * visible_pairs(
+        seq, seq, True, cfg.sliding_window)
+    fwd = 2.0 * matmul * n_seq * seq + attn
+    return 3 * fwd if train else fwd
+
+
+def event_pair():
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def moe_spy():
+    """Keep the largest ``moe_ffn`` call's tokens, router and routing knobs."""
+    from repro_torch.models.transformer import moe
+
+    return largest_call(moe, "moe_ffn", lambda a: a[0].shape[0], lambda args, kw: (
+        (args[0].detach(), args[1].detach()), {"top_k": kw["top_k"], "capacity": kw["capacity"]}))
+
+
+def dropped_share(seen) -> str:
+    """Share of a kept ``moe_ffn`` call's assignments dropped for capacity."""
+    from repro_torch.models.transformer import moe
+
+    (x, router), kw = seen["args"], seen["kwargs"]
+    r = moe.dispatch(x, router, **kw)
+    return f"{int(r.dropped) / r.keep.numel():.4f} (capacity {kw['capacity']})"
+
+
+def leaf_heads(params) -> dict:
+    """The first 4,096 elements of every parameter leaf (a cheap copy to
+    tell which leaves a step changed)."""
+    from repro_torch.core import tree
+
+    return {k: v.detach().reshape(-1)[:4096].clone() for k, v in tree.paths(params)}
+
+
+def unchanged_leaves(heads: dict, params) -> tuple:
+    """(float32 leaves a step left unchanged, bfloat16 ones).  A bfloat16
+    leaf may stay: the warm-up's first updates (lr 1e-5) are below half a
+    bfloat16 spacing of the norms' 1.0."""
+    from repro_torch.core import tree
+
+    same = [(k, v.dtype) for k, v in tree.paths(params)
+            if torch.equal(heads[k], v.detach().reshape(-1)[:4096])]
+    return ([k for k, dt in same if dt != torch.bfloat16],
+            [k for k, dt in same if dt == torch.bfloat16])
+
+
+def hold_flash(q, k, v, group: int, d: int, what: str) -> dict:
+    """One layer's q/k/v through the flash kernel against the plain
+    attention (rtol 2^-7, atol 2^-12*max|v|), at GQA ``group`` and head dim
+    ``d``; the kernel's time and rate on the visible pairs."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    if q.shape[1] // k.shape[1] != group or q.shape[-1] != d:
+        raise AssertionError(f"{what}: heads {q.shape[1]}/{k.shape[1]} of {q.shape[-1]}, "
+                             f"expected group {group} at D = {d}")
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=0)
+    ref = fa_kernel.flash_attention_torch(q, k, v, causal=True, window=0)
+    atol = 2.0**-12 * float(v.float().abs().max())
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0**-7, atol=atol)
+    err = float((got.float() - ref.float()).abs().max())
+    del got, ref
+    s_len = q.shape[2]
+    ops = q.shape[0] * q.shape[1] * 4 * q.shape[-1] * visible_pairs(s_len, s_len, True, 0)
+    ms = time_ms(lambda: fa_kernel.flash_attention(q, k, v, causal=True, window=0), reps=3)
+    plain_ms = time_ms(lambda: fa_kernel.flash_attention_torch(q, k, v, causal=True, window=0),
+                       reps=1)
+    try:  # the yardstick only: SDPA's flash backend, the same causal GQA attention
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            lib = f"{time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True), reps=3):.4f}"  # noqa: E501
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        lib = f"none: {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return {"flash_q": "x".join(map(str, q.shape)), "flash_group": group,
+            "flash_max_abs_err": f"{err:.3e}", "flash_atol": f"{atol:.3e}",
+            "flash_ms": f"{ms:.4f}", "flash_plain_ms": f"{plain_ms:.4f}",
+            "flash_sdpa_flash_ms": lib,
+            "flash_tflops_visible": f"{ops / ms / 1e9:.1f}",
+            "flash_bound_ms": f"{ops / TENSOR_BF16_OPS_PER_S * 1e3:.4f}"}
+
+
+def lm_train_phase(launches: dict, times: dict, dev, card: str) -> None:
+    """The lm_train phase (see the module docstring): LM and two-tower
+    training at full width, the large LMs' cost1 prefills and qwen3-moe's
+    cost1 decode, each cell built by ``launch.steps.build_cell`` (the
+    two-tower state by the same functions at its cut vocabulary) and run
+    as the main path."""
+    from repro_torch.configs import two_tower_retrieval
+    from repro_torch.core import tree
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import two_tower
+    from repro_torch.runtime import compression
+    from repro_torch.train import loop as train_loop
+
+    torch.cuda.empty_cache()
+    say("lm_train", resident_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}", card=f"'{card}'")
+
+    def begin():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter(), torch.cuda.memory_allocated()
+
+    def peak(resident):
+        return f"{(torch.cuda.max_memory_allocated() - resident) / 1e9:.3f}"
+
+    def rate(flop, ms):
+        return f"{flop / (ms / 1e3) / TENSOR_BF16_OPS_PER_S:.4f}"
+
+    # -- h2o-danube-1.8b train_4k, all 24 layers (remat, bf16 moments) -----
+    c0, resident = begin()
+    with counted(KERNELS, launches):
+        t0 = sync_now()
+        cell = steps.build_cell("h2o-danube-1.8b", "train_4k", device=dev, seed=SEED)
+        build_s = sync_s(t0)
+        state, full = cell.args
+        cfg, opt_cfg, loss = cell.meta["cfg"], cell.meta["opt_cfg"], cell.meta["loss"]
+        batch = {k_: v_[:H2O_ACCUM, :H2O_UB] for k_, v_ in full.items()}
+        heads = leaf_heads(state["params"])
+        fns = [train_loop.make_train_step(loss, opt_cfg, grad_accum=H2O_ACCUM)] * H2O_STEPS + [
+            train_loop.make_train_step(loss, opt_cfg, grad_accum=H2O_ACCUM,
+                                       compress_fn=compression.make_int8_ef_compressor())]
+        spans, losses = [], []
+        for fn in fns:
+            ev = event_pair()
+            ev[0].record()
+            state, metrics = fn(state, batch)
+            ev[1].record()
+            spans.append(ev)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        for k_ in ("flash_attention", "embedding_bag"):
+            expect_launches(k_, 0, "lm_train/h2o")
+    step_ms = [a_.elapsed_time(b_) for a_, b_ in spans]
+    losses = [float(x) for x in losses]
+    stale, _ = unchanged_leaves(heads, state["params"])
+    if not all(np.isfinite(losses)) or stale:
+        raise AssertionError(f"lm_train/h2o: losses {losses}, unchanged leaves {stale}")
+    n_tok = H2O_ACCUM * H2O_UB * full["tokens"].shape[-1]
+    flop = lm_flops(cfg, H2O_ACCUM * H2O_UB, full["tokens"].shape[-1], True)
+    times["lm_train_step_ms"] = step_ms[H2O_STEPS - 1]
+    say("lm_train", cell="h2o-danube-1.8b/train_4k full", layers=cfg.n_layers,
+        params=cfg.n_params(), attn_impl=cfg.attn_impl, remat=cfg.remat,
+        moments=str(opt_cfg.state_dtype).replace("torch.", ""),
+        cut=(f"{H2O_ACCUM} microbatches of {H2O_UB} x {full['tokens'].shape[-1]} "
+             f"(repro: {tuple(full['tokens'].shape)})"),
+        build_s=f"{build_s:.2f}", step_ms="/".join(f"{x:.1f}" for x in step_ms),
+        int8_ef_step_ms=f"{step_ms[-1]:.1f}", losses="/".join(f"{x:.6g}" for x in losses),
+        tokens_per_s=f"{n_tok / step_ms[H2O_STEPS - 1] * 1e3:.1f}",
+        model_tflop=f"{flop / 1e12:.2f}", model_flop_share_of_989=rate(flop, step_ms[H2O_STEPS - 1]),
+        peak_gb=peak(resident), leaves_changed=len(heads), card=f"'{card}'",
+        wall_s=f"{time.perf_counter() - c0:.1f}")
+    del cell, state, full, batch, heads, fns, metrics
+
+    # -- qwen3-moe-235b-a22b train_4k, cost1 (bf16 params and moments) ----
+    c0, resident = begin()
+    with counted(KERNELS, launches), moe_spy() as seen:
+        cell = steps.build_cell("qwen3-moe-235b-a22b", "train_4k", variant="cost1", device=dev,
+                                seed=SEED)
+        state, full = cell.args
+        cfg = cell.meta["cfg"]
+        batch = {k_: v_[:MOE_TRAIN_UB] for k_, v_ in full.items()}
+        heads = leaf_heads(state["params"])
+        spans = []
+        for _ in range(MOE_TRAIN_STEPS):
+            ev = event_pair()
+            ev[0].record()
+            state, metrics = cell.step_fn(state, batch)
+            ev[1].record()
+            spans.append(ev)
+        torch.cuda.synchronize()
+        for k_ in ("flash_attention", "embedding_bag"):
+            expect_launches(k_, 0, "lm_train/moe")
+    step_ms = [a_.elapsed_time(b_) for a_, b_ in spans]
+    ms = step_ms[-1]
+    with torch.no_grad():
+        _, lm_m = cell.meta["loss"](state["params"], batch)
+    aux, lval = float(lm_m["aux"]), float(metrics["loss"])
+    stale, bf16_same = unchanged_leaves(heads, state["params"])
+    if not (np.isfinite(lval) and np.isfinite(aux)) or stale or len(bf16_same) == len(heads):
+        raise AssertionError(f"lm_train/moe: loss {lval}, aux {aux}, unchanged leaves "
+                             f"{stale + bf16_same}")
+    flop = lm_flops(cfg, MOE_TRAIN_UB, batch["tokens"].shape[-1], True)
+    times["moe_train_step_ms"] = ms
+    say("lm_train", cell="qwen3-moe-235b-a22b/train_4k cost1", layers=cfg.n_layers,
+        params=cfg.n_params(), active_params=cfg.n_active_params(),
+        experts=f"{cfg.moe.n_experts} top {cfg.moe.top_k}",
+        param_dtype=str(cfg.param_dtype).replace("torch.", ""),
+        cut=f"microbatch {MOE_TRAIN_UB} x {batch['tokens'].shape[-1]} (repro: 16)",
+        step_ms="/".join(f"{x:.1f}" for x in step_ms), loss=f"{lval:.6g}",
+        aux_after=f"{aux:.6g}",
+        bf16_leaves_unchanged=",".join(bf16_same) or "none",
+        dropped=dropped_share(seen),
+        tokens_per_s=f"{batch['tokens'].numel() / ms * 1e3:.1f}",
+        model_tflop=f"{flop / 1e12:.3f}", model_flop_share_of_989=rate(flop, ms),
+        peak_gb=peak(resident), card=f"'{card}'", wall_s=f"{time.perf_counter() - c0:.1f}")
+    del cell, state, full, batch, heads, metrics, lm_m, seen
+
+    # -- the cost1 prefills through flash_attention (batch 1 of 32) ---------
+    for arch, group in LARGE_PREFILLS:
+        c0, resident = begin()
+        cell = steps.build_cell(arch, "prefill_32k", variant="cost1", device=dev, seed=SEED)
+        params, toks = cell.args[0], cell.args[1][:PREFILL_BATCH]
+        cfg = cell.meta["cfg"]
+        step = cell.meta["make_step"](attn_impl="flash")
+        step(params, toks)  # warm-up
+        paths = dict(fa_kernel.flash_attention.path_launches)
+        t0 = sync_now()
+        with counted(KERNELS, launches), largest_call(
+                fa_ops, "attention", lambda a: a[0].numel()) as fa_seen, moe_spy() as seen:
+            logits = step(params, toks)
+        ms = sync_s(t0) * 1e3
+        expect_launches("flash_attention", cfg.n_layers, f"lm_train/{arch}/prefill")
+        if fa_kernel.flash_attention.path_launches["wgmma"] != paths["wgmma"] + cfg.n_layers:
+            raise AssertionError(f"lm_train/{arch}: flash_attention off the wgmma kernel")
+        s_len = toks.shape[1]
+        if (tuple(logits.shape) != (PREFILL_BATCH, s_len, cfg.vocab)
+                or logits.dtype != cfg.compute_dtype or not bool(torch.isfinite(logits).all())):
+            raise AssertionError(f"lm_train/{arch}: logits not finite of shape "
+                                 f"({PREFILL_BATCH}, {s_len}, {cfg.vocab})")
+        del logits
+        flop = lm_flops(cfg, PREFILL_BATCH, s_len, False)
+        extra = {"dropped": dropped_share(seen)} if cfg.moe is not None else {}
+        held = hold_flash(*(t_.contiguous() for t_ in fa_seen["args"][:3]), group,
+                          cfg.head_dim, f"lm_train/{arch}")
+        key = {"qwen3-moe-235b-a22b": "moe_prefill_ms", "arctic-480b": "arctic_prefill_ms",
+               "qwen2-72b": "qwen2_cost1_prefill_ms"}.get(arch, "mistral_cost1_prefill_ms")
+        times[key] = ms
+        say("lm_train", cell=f"{arch}/prefill_32k cost1", layers=cfg.n_layers,
+            params=cfg.n_params(), heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}",
+            qkv_bias=cfg.qkv_bias, cut=f"batch {PREFILL_BATCH} of 32", prefill_ms=f"{ms:.2f}",
+            tokens_per_s=f"{s_len / ms * 1e3:.1f}", model_tflop=f"{flop / 1e12:.2f}",
+            model_flop_share_of_989=rate(flop, ms), **extra, **held,
+            peak_gb=peak(resident), card=f"'{card}'", wall_s=f"{time.perf_counter() - c0:.1f}")
+        del cell, params, toks, step, fa_seen, seen
+        if arch != "qwen3-moe-235b-a22b":
+            continue
+        # qwen3-moe's cost1 decode_32k: batch 128 against a linear cache
+        # filled from the seed, the steps writing its last slots
+        c0, resident = begin()
+        cell = steps.build_cell(arch, "decode_32k", variant="cost1", device=dev, seed=SEED)
+        params, cache, tok = cell.args
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for buf in (cache["k"], cache["v"]):
+            buf.normal_(generator=gen)
+        seq = cell.meta["cache_len"]
+        cache["pos"] = seq - MOE_DECODE_STEPS - 1
+        out, cache = cell.step_fn(params, cache, tok)  # warm-up
+        tok = out.argmax(-1)
+        t0 = sync_now()
+        with counted(KERNELS, launches):
+            for _ in range(MOE_DECODE_STEPS):
+                out, cache = cell.step_fn(params, cache, tok)
+                tok = out.argmax(-1)
+        ms = sync_s(t0) * 1e3 / MOE_DECODE_STEPS
+        db = cell.meta["batch"]
+        if tuple(out.shape) != (db, 1, cfg.vocab) or not bool(torch.isfinite(out).all()) \
+                or cache["pos"] != seq:
+            raise AssertionError(f"lm_train/{arch}/decode: logits not finite of shape "
+                                 f"({db}, 1, {cfg.vocab}) or pos {cache['pos']}")
+        times["moe_decode_step_ms"] = ms
+        # a token: every matrix it touches, and attention over the cache
+        flop = db * (lm_flops(cfg, 1, 1, False)
+                     + cfg.n_layers * 4 * cfg.n_heads * cfg.head_dim * seq)
+        say("lm_train", cell=f"{arch}/decode_32k cost1", batch=db, cache_slots=seq,
+            cache_gb=f"{2 * cache['k'].numel() * 2 / 1e9:.2f}", steps=MOE_DECODE_STEPS,
+            decode_step_ms=f"{ms:.2f}", tokens_per_s=f"{db / ms * 1e3:.1f}",
+            model_flop_share_of_989=rate(flop, ms),
+            peak_gb=peak(resident), card=f"'{card}'", wall_s=f"{time.perf_counter() - c0:.1f}")
+        del cell, params, cache, tok, out
+
+    # -- two-tower train_batch at FULL width (5M-row vocabularies) ----------
+    c0, resident = begin()
+    cfg = dataclasses.replace(two_tower_retrieval.FULL, n_users=TT_ROWS, n_items=TT_ROWS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kb = cfg.bag_size
+
+    def bags(nf):
+        # ids in [-1, vocab), as repro's recsys cells draw them
+        return torch.randint(-1, TT_ROWS, (TT_BATCH, nf, kb), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    t0 = sync_now()
+    params = two_tower.init_params(cfg, generator=gen, device=dev)
+    state = train_loop.init_state(tree.tree_map(lambda p: p.requires_grad_(), params),
+                                  steps.OPT_CFG)
+    batch = {"user_bags": bags(cfg.n_user_fields), "item_bags": bags(cfg.n_item_fields),
+             "item_logq": torch.zeros((TT_BATCH,), dtype=torch.float32, device=dev)}
+    build_s = sync_s(t0)
+    # the first step's loss and grads, bag kernel against plain bag, and
+    # the pooled fields against the plain bag (outside the count)
+    rows = {t_: torch.unique(batch[f"{t_}_bags"][batch[f"{t_}_bags"] >= 0])[:TT_GRAD_ROWS].long()
+            for t_ in ("user", "item")}
+    first = {}
+    for backend in ("cuda", "torch"):
+        c = dataclasses.replace(cfg, backend=backend)
+        lval, _ = two_tower.loss_fn(state["params"], batch, c)
+        g = torch.autograd.grad(lval, [state["params"][t_]["table"] for t_ in ("user", "item")])
+        first[backend] = (float(lval.detach()), [g_.index_select(0, rows[t_])
+                                        for g_, t_ in zip(g, ("user", "item"))])
+        del g, lval
+    if abs(first["cuda"][0] - first["torch"][0]) > TT_RTOL * abs(first["torch"][0]):
+        raise AssertionError(f"lm_train/two_tower: loss {first['cuda'][0]} against the plain "
+                             f"bag's {first['torch'][0]}")
+    grad_err = []
+    for a_, b_ in zip(first["cuda"][1], first["torch"][1]):
+        scale = float(b_.abs().max())
+        grad_err.append(float((a_ - b_).abs().max()))
+        if scale == 0 or grad_err[-1] > TT_RTOL * scale:
+            raise AssertionError(f"lm_train/two_tower: table grad rows {grad_err[-1]:.3e} "
+                                 f"from the plain bag's (max {scale:.3e})")
+    table = state["params"]["user"]["table"].detach()
+    idx = batch["user_bags"].reshape(-1, kb)
+    wts = torch.ones(idx.shape, dtype=torch.float32, device=dev)
+    bag_atol = 2 * kb * kb * U * float(table.abs().max())
+    pooled = bag_kernel.embedding_bag(table, idx, wts, "mean")
+    torch.testing.assert_close(pooled, bag_kernel.embedding_bag_torch(table, idx, wts, "mean"),
+                               rtol=0.0, atol=bag_atol)
+    bag_ms = time_ms(lambda: bag_kernel.embedding_bag(table, idx, wts, "mean"), reps=5)
+    bag_plain_ms = time_ms(lambda: bag_kernel.embedding_bag_torch(table, idx, wts, "mean"),
+                           reps=3)
+    valid = idx >= 0
+    counts = valid.sum(dim=1)
+    flat_ids, offsets = idx[valid].long(), torch.cumsum(counts, 0) - counts
+    bag_lib_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
+        flat_ids, table, offsets, mode="mean"), reps=5)
+    # the bound reads each distinct row once, the ids and weights, writes the output
+    n_rows = int(torch.unique(flat_ids).numel())
+    bag_bytes = n_rows * cfg.embed_dim * 4 + idx.numel() * 8 + idx.shape[0] * cfg.embed_dim * 4
+    del pooled, table, wts, first, valid, counts, flat_ids, offsets
+    heads = leaf_heads(state["params"])
+    step = train_loop.make_train_step(
+        lambda p, b: two_tower.loss_fn(p, b, cfg), steps.OPT_CFG)
+    spans, losses = [], []
+    with counted(KERNELS, launches):
+        for _ in range(TT_STEPS):
+            ev = event_pair()
+            ev[0].record()
+            state, metrics = step(state, batch)
+            ev[1].record()
+            spans.append(ev)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        expect_launches("embedding_bag", 2 * TT_STEPS, "lm_train/two_tower")
+    step_ms = [a_.elapsed_time(b_) for a_, b_ in spans]
+    losses = [float(x) for x in losses]
+    stale, _ = unchanged_leaves(heads, state["params"])
+    if not all(np.isfinite(losses)) or stale:
+        raise AssertionError(f"lm_train/two_tower: losses {losses}, unchanged leaves {stale}")
+    mlp = sum(a_ * b_ for t_ in ("user", "item")
+              for a_, b_ in (w_.shape for w_ in (lp["w"] for lp in state["params"][t_]["mlp"])))
+    flop = 3 * 2.0 * (TT_BATCH * mlp + TT_BATCH * TT_BATCH * cfg.tower_mlp[-1])
+    times["two_tower_train_step_ms"] = step_ms[-1]
+    say("lm_train", cell="two-tower-retrieval/train_batch", embed_dim=cfg.embed_dim,
+        tower_mlp="-".join(map(str, cfg.tower_mlp)),
+        cut=f"vocabularies {TT_ROWS} of 10M, batch {TT_BATCH} of 65536",
+        tables_gb=f"{2 * TT_ROWS * cfg.embed_dim * 4 / 1e9:.2f}", build_s=f"{build_s:.2f}",
+        step_ms="/".join(f"{x:.1f}" for x in step_ms), losses="/".join(f"{x:.6g}" for x in losses),
+        examples_per_s=f"{TT_BATCH / step_ms[-1] * 1e3:.1f}",
+        model_tflop=f"{flop / 1e12:.3f}", model_flop_share_of_989=rate(flop, step_ms[-1]),
+        embedding_bag_launches_a_step=2,
+        bag_user=f"B={idx.shape[0]} K={kb} distinct={n_rows}", bag_kernel_ms=f"{bag_ms:.4f}",
+        bag_plain_ms=f"{bag_plain_ms:.4f}", bag_library_ms=f"{bag_lib_ms:.4f}",
+        bag_bound_ms=f"{bag_bytes / HBM_BYTES_PER_S * 1e3:.4f}",
+        bag_vs_plain=f"atol {bag_atol:.3e}",
+        first_step_vs_plain_bag=(f"loss rtol {TT_RTOL}; table grad rows max diff "
+                                 + "/".join(f"{e_:.3e}" for e_ in grad_err)),
+        peak_gb=peak(resident), card=f"'{card}'", wall_s=f"{time.perf_counter() - c0:.1f}")
+    del state, params, batch, heads, metrics, idx, rows
+    torch.cuda.empty_cache()
+
+
 def serve_phase(g, launches: dict, times: dict, dev, card: str) -> None:
     """The serve phase (see the module docstring).  ``g`` is the social
     DiGraph on the card; every level serves a clone of it, so ``g`` stays
@@ -1782,7 +2212,7 @@ def main() -> None:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.configs import base as cfg_base
     from repro_torch.configs import h2o_danube_1_8b, two_tower_retrieval
-    from repro_torch.core import DiGraph, csr, edgebatch, traversal, updates, util
+    from repro_torch.core import DiGraph, csr, edgebatch, traversal, tree, updates, util
     from repro_torch.io import _cparse, mtx, synthetic
     from repro_torch.kernels import KERNELS, _build
     from repro_torch.kernels.bsr_spmm import kernel as bsr_kernel
@@ -1827,6 +2257,12 @@ def main() -> None:
     p0 = time.perf_counter()
     gnn_train_phase(launches, times, dev, smi)
     phase_s["gnn_train_s"] = time.perf_counter() - p0
+
+    # 1c. lm_train (LM and two-tower training, the large LMs' cost1
+    # prefills) second, on the emptied card -------------------------------
+    p0 = time.perf_counter()
+    lm_train_phase(launches, times, dev, smi)
+    phase_s["lm_train_s"] = time.perf_counter() - p0
 
     # 2. graph -------------------------------------------------------------
     t0 = sync_now()
@@ -2383,7 +2819,7 @@ def main() -> None:
         raise AssertionError("two_tower/ragged: scores not finite")
     torch.testing.assert_close(scores, plain_model.serve_step(rag),
                                rtol=SCORE_RTOL, atol=SCORE_ATOL)
-    table = model.user.table
+    table = model.user.table.detach()
     # mean of <= K rows summed in two roundings (FMA, product then add):
     # within 2*K*U*sum|row| <= 2*K*K*U*max|table| of each other
     bag_atol = 2 * kb * kb * U * float(table.abs().max())
@@ -2418,12 +2854,14 @@ def main() -> None:
     # each tower's bag time against its MLP time, at serve_bulk
     bulk = serve["serve_bulk"]["batch"]
     tower_split = {}
-    for tname, tower in (("user", model.user), ("item", model.item)):
+    for tname, tower in model.tree().items():
         bags = bulk[f"{tname}_bags"]
-        pooled = two_tower.pool_fields(tower, bags, cfg)
-        tower_split[f"{tname}_bag_ms"] = time_ms(lambda: two_tower.pool_fields(tower, bags, cfg),
-                                           reps=5)
-        tower_split[f"{tname}_mlp_ms"] = time_ms(lambda: two_tower.mlp_head(tower, pooled), reps=5)
+        with torch.no_grad():  # serving: no autograd graph
+            pooled = two_tower.pool_fields(tower, bags, cfg)
+            tower_split[f"{tname}_bag_ms"] = time_ms(
+                lambda: two_tower.pool_fields(tower, bags, cfg), reps=5)
+            tower_split[f"{tname}_mlp_ms"] = time_ms(lambda: two_tower.mlp_head(tower, pooled),
+                                                     reps=5)
         del pooled
     # the bag kernel at the serve_bulk user tower's operands
     idx = bulk["user_bags"].reshape(-1, kb)
@@ -2754,9 +3192,8 @@ def main() -> None:
     smoke_cfg = two_tower_retrieval.SMOKE
     sm = two_tower.init_model(smoke_cfg, generator=torch.Generator(dev).manual_seed(7),
                               device=dev)
-    sm_cpu = two_tower.TwoTower(
-        *(two_tower.Tower(t.table.cpu(), [(w.cpu(), b_.cpu()) for w, b_ in zip(t.w, t.b)],
-                          smoke_cfg) for t in (sm.user, sm.item)), smoke_cfg)
+    host = lambda t_: t_.detach().cpu()  # noqa: E731
+    sm_cpu = two_tower.TwoTower(tree.tree_map(host, sm.tree()), smoke_cfg)
     brng = np.random.default_rng(7)
     sbatch = {f"{t}_bags": torch.from_numpy(brng.integers(
         -1, smoke_cfg.n_users, (32, nf, smoke_cfg.bag_size)).astype(np.int32))
@@ -2766,10 +3203,8 @@ def main() -> None:
         util.host(sm_cpu.serve_step(sbatch)), rtol=SCORE_RTOL, atol=SCORE_ATOL)
     lm_smoke = dataclasses.replace(h2o_danube_1_8b.SMOKE, attn_impl="flash", attn_block=8)
     slm = tm.init_model(lm_smoke, generator=torch.Generator(dev).manual_seed(7), device=dev)
-    slm_cpu = tm.TransformerLM(
-        slm.embed.cpu(), [tm.DecoderLayer({n_: p_.cpu() for n_, p_ in lp.named_parameters()})
-                          for lp in slm.layers],
-        slm.ln_f.cpu(), slm.unembed.cpu(), dataclasses.replace(lm_smoke, attn_impl="ref"))
+    slm_cpu = tm.TransformerLM(tree.tree_map(host, slm.tree()),
+                               dataclasses.replace(lm_smoke, attn_impl="ref"))
     stoks = torch.from_numpy(np.random.default_rng(7).integers(0, lm_smoke.vocab, (2, 48)))
     np.testing.assert_allclose(util.host(slm(stoks.to(dev))[0]), util.host(slm_cpu(stoks)[0]),
                                rtol=1e-4, atol=1e-4)

@@ -59,6 +59,26 @@ def _host_array(key: str, v) -> np.ndarray:
     return np.asarray(v)
 
 
+#: a bfloat16 leaf on disk: its raw 16-bit words, npz descr ``<V2``, as
+#: ``repro`` writes an ``ml_dtypes.bfloat16`` array; the manifest names it
+BF16_WORDS = np.dtype("V2")
+
+
+def _dtype_name(arr) -> str:
+    """The manifest's name of an array's dtype (``repro``'s ``str(dtype)``;
+    raw bfloat16 words are ``"bfloat16"``)."""
+    return "bfloat16" if arr.dtype == BF16_WORDS else str(arr.dtype)
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a checkpoint stores it: a host copy; a bfloat16 tensor
+    (which numpy has no type for) as its raw 16-bit words."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(BF16_WORDS)
+    return t.numpy()
+
+
 def _byte_view(arr: np.ndarray) -> np.ndarray:
     """The bytes of ``arr`` (those of ``arr.tobytes()``) as a flat uint8
     array — a view, not a copy, of a C-contiguous array."""
@@ -170,7 +190,7 @@ def save_arrays_sharded(
             manifest["shards"][str(sid)] = {
                 "keys": sorted(arrays.keys()),
                 "shapes": {k: list(v.shape) for k, v in arrays.items()},
-                "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+                "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
                 # per-key chunk digests: the anchor future diff steps
                 # hash/patch against (§15)
                 "chunks": {k: _chunk_crcs(_byte_view(v)) for k, v in arrays.items()},
@@ -264,7 +284,7 @@ def save_arrays_diff(
                     base_blk is not None
                     and k in base_blk.get("chunks", {})
                     and base_blk["shapes"].get(k) == list(arr.shape)
-                    and base_blk["dtypes"].get(k) == str(arr.dtype)
+                    and base_blk["dtypes"].get(k) == _dtype_name(arr)
                 )
                 if isinstance(shard_hint, dict):
                     key_hint = shard_hint.get(k)
@@ -305,7 +325,7 @@ def save_arrays_diff(
             manifest["shards"][str(sid)] = {
                 "keys": sorted(arrays.keys()),
                 "shapes": {k: list(v.shape) for k, v in arrays.items()},
-                "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+                "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
                 "chunks": chunks_out,
                 "diff_bytes": int(diff_bytes),
             }
@@ -370,7 +390,7 @@ def restore_arrays(
         out = {}
         for k in blk["keys"]:
             v = data[k]
-            if list(v.shape) != blk["shapes"][k] or str(v.dtype) != blk["dtypes"][k]:
+            if list(v.shape) != blk["shapes"][k] or _dtype_name(v) != blk["dtypes"][k]:
                 raise ValueError(
                     f"checkpoint {d}: {k} is {v.shape}/{v.dtype}, manifest says "
                     f"{blk['shapes'][k]}/{blk['dtypes'][k]}"
@@ -525,8 +545,8 @@ def restore_arrays_diff(
                         v = data[k]
                     elif data is not None and f"{k}::idx" in data.files:
                         basev = cur.get(k)
-                        if basev is None or list(basev.shape) != shape or str(
-                            basev.dtype
+                        if basev is None or list(basev.shape) != shape or _dtype_name(
+                            basev
                         ) != dt:
                             raise ValueError(f"diff step {s}: no compatible base value for {k}")
                         v = _patch_chunks(basev, data[f"{k}::idx"], data[f"{k}::dat"],
@@ -537,7 +557,7 @@ def restore_arrays_diff(
                             raise ValueError(
                                 f"diff step {s}: {k} carried forward but absent from base"
                             )
-                    if list(np.asarray(v).shape) != shape or str(v.dtype) != dt:
+                    if list(np.asarray(v).shape) != shape or _dtype_name(v) != dt:
                         raise ValueError(
                             f"diff step {s}: {k} is {np.asarray(v).shape}/{v.dtype},"
                             f" manifest says {shape}/{dt}"
@@ -627,8 +647,9 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None) -> tuple[An
     Validates manifest keys/shapes against ``like`` first — a structure
     mismatch (code drift vs checkpoint) fails loudly before any device
     allocation.  A tensor leaf of ``like`` comes back as a tensor of its
-    dtype on its device; another leaf with a dtype (a numpy array) as a CPU
-    tensor of that dtype; a leaf without one as the stored numpy array.
+    dtype on its device (a bfloat16 leaf's stored words reinterpreted bit
+    for bit); another leaf with a dtype (a numpy array) as a CPU tensor of
+    that dtype; a leaf without one as the stored numpy array.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -649,7 +670,12 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None) -> tuple[An
         for k, leaf in want.items():
             v = data[k]
             # ascontiguousarray makes a 0-d array 1-d: keep the stored shape
-            if isinstance(leaf, torch.Tensor):
+            if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16 \
+                    and v.dtype == BF16_WORDS:
+                # the raw words, reinterpreted bit for bit
+                v = torch.from_numpy(np.ascontiguousarray(v).reshape(v.shape).view(np.int16)) \
+                    .view(torch.bfloat16).to(leaf.device)
+            elif isinstance(leaf, torch.Tensor):
                 v = torch.from_numpy(np.ascontiguousarray(v).reshape(v.shape)).to(
                     device=leaf.device, dtype=leaf.dtype)
             elif hasattr(leaf, "dtype"):

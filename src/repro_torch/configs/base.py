@@ -87,10 +87,14 @@ def _ensure_loaded() -> None:
     # every time, not only while the registry is empty: importing one
     # config module first must not hide the others
     from . import (  # noqa: F401
+        arctic_480b,
         gcn_cora,
         graphcast,
         h2o_danube_1_8b,
         mace,
+        mistral_large_123b,
+        qwen2_72b,
+        qwen3_moe_235b_a22b,
         schnet,
         two_tower_retrieval,
     )

@@ -1,23 +1,31 @@
-"""Cell programs: (arch × shape) -> step function + inputs (the GNN family).
+"""Cell programs: (arch × shape) -> step function + inputs.
 
-The counterpart of ``repro.launch.steps`` for the ``gnn`` family: its four
-archs × the four shapes of ``GNN_SHAPES``, each a training cell (AdamW,
-``OPT_CFG``).
+The counterpart of ``repro.launch.steps``: every (arch, shape) cell of the
+three families — LM train / prefill / decode, GNN training, two-tower
+train / serve / retrieval.
 
-  * ``reduced=True`` — the SMOKE config on ``repro``'s small numpy-drawn
-    arrays (the same ``np.random.default_rng(0)`` draws), for one-step
-    tests on the CPU;
-  * ``reduced=False`` — the FULL config on concrete tensors at the shape's
-    real size on ``device``, drawn from a ``torch.Generator`` seeded with
-    ``seed`` (``repro`` builds abstract shapes here, for its compile-only
-    dry run, which the port does not have).
+  * ``reduced=True`` — the SMOKE config on ``repro``'s small arrays, for
+    one-step tests on the CPU: the same ``np.random.default_rng(0)`` draws
+    for the GNN and recsys cells; the LM cells draw their tokens from
+    ``np.random.default_rng(1)`` (``repro`` uses ``jax.random`` there, which
+    the port cannot replay: tests hand ``repro``'s tokens over);
+  * ``reduced=False`` — the FULL config (or its ``variant``) on concrete
+    tensors at the shape's real size on ``device``, drawn from a
+    ``torch.Generator`` seeded with ``seed`` (``repro`` builds abstract
+    shapes here, for its compile-only dry run, which the port does not
+    have).
 
-``repro``'s full-size rules are kept: node and edge counts padded to 512,
-GCN's ``d_in`` set to the shape's feature width, GraphCast's ``remat`` and
-``bf16`` and MACE's ``edge_chunks=64`` above 2M edges.  Its roofline
-variants (``cost1``, ``chunkN``), shardings and ``donate`` belong to the
-dry run and are not ported; the LM and recsys cells wait for their
-training ports (ROADMAP.md §1 item 4).
+``variant`` takes ``repro``'s ``"full"`` and, for the LM family, its
+``"cost1"`` / ``"cost2"`` / ``"cost4"`` (1 / 2 / 4 layers at full width,
+no grad accumulation).  ``repro``'s full-size rules are kept: bfloat16
+Adam moments for every full LM train, ``accum = 16`` for ``"full"``, a
+microbatch of ``max(global_batch // 16, 1)`` and tokens ``[accum, ub,
+seq]``; GNN node and edge counts padded to 512, GCN's ``d_in`` set to the
+shape's feature width, GraphCast's ``remat`` and ``bf16`` and MACE's
+``edge_chunks=64`` above 2M edges.  The GNN ``chunkN`` variants wait for
+``launch/roofline.py``, and ``attach_shardings`` for ``launch/shardings.py``
+(ROADMAP.md §1 item 3); ``donate`` belongs to XLA.  A step updates its
+state's tensors in place.
 """
 from __future__ import annotations
 
@@ -30,12 +38,15 @@ import torch
 
 from ..configs import base as cfgbase
 from ..core import csr as csr_mod
+from ..core import tree as tree_mod
 from ..core import util
 from ..models.gnn import common
 from ..models.gnn import gcn as gcn_mod
 from ..models.gnn import graphcast as graphcast_mod
 from ..models.gnn import mace as mace_mod
 from ..models.gnn import schnet as schnet_mod
+from ..models.recsys import two_tower as tt_mod
+from ..models.transformer import model as tmodel
 from ..sampling import neighbor
 from ..train import loop as train_loop
 from ..train import optimizer as opt_mod
@@ -48,30 +59,143 @@ GNN_MODULES = {
 }
 
 OPT_CFG = opt_mod.OptimizerConfig(lr=1e-4, warmup_steps=10, total_steps=1000)
+OPT_CFG_BF16 = dataclasses.replace(OPT_CFG, state_dtype=torch.bfloat16)
+
+# grad-accumulation microbatching for LM training (DESIGN.md §5)
+LM_TRAIN_ACCUM = 16
 
 
 @dataclasses.dataclass
 class CellProgram:
-    """``step_fn(*args) -> (state, metrics)``.  ``meta`` holds the cell's
-    ``cfg``, sizes, its model ``module`` and ``graph(batch)``: the graph
-    dict the model reads for a batch (the sampled subgraph, for the sampled
-    cells)."""
+    """``step_fn(*args)``: ``(state, metrics)`` for a train cell, the
+    outputs for a serving cell.  ``meta`` holds the cell's ``cfg``, sizes
+    and ``make_step(backend)``; a train cell's also its ``loss(params,
+    batch)`` and ``opt_cfg``; a GNN cell's its model ``module`` and
+    ``graph(batch)``: the graph dict the model reads for a batch (the
+    sampled subgraph, for the sampled cells)."""
 
     step_fn: Callable
     args: tuple                   # (state, batch)
     meta: dict = dataclasses.field(default_factory=dict)
 
     def with_backend(self, backend: str) -> Callable:
-        """The cell's step with the segment sums on ``backend`` ("torch" is
-        the plain reference on the card), over the same graph."""
+        """The cell's step with its kernels (segment sums, bags, attention)
+        on ``backend`` ("torch" is the plain reference on the card)."""
         return self.meta["make_step"](backend)
 
     def forward(self, params, batch, backend: str = "auto"):
-        """The model's output for ``batch`` (logits, next state, energies)."""
+        """A GNN cell's model output for ``batch`` (logits, next state,
+        energies)."""
         cfg = dataclasses.replace(self.meta["cfg"], backend=backend)
         return self.meta["module"].forward(params, self.meta["graph"](batch), cfg)
 
 
+def _tokens(shape, vocab, *, reduced, device, generator):
+    """Token ids in [0, vocab): numpy's (seed 1) when reduced, else drawn
+    on ``device``."""
+    if reduced:
+        rng = np.random.default_rng(1)
+        return torch.from_numpy(rng.integers(0, vocab, shape).astype(np.int32)).to(device)
+    return torch.randint(0, vocab, shape, generator=generator, dtype=torch.int32,
+                         device=device)
+
+
+def _trainable(params):
+    """``params`` with every leaf recording grads (the train state's)."""
+    return tree_mod.tree_map(lambda p: p.requires_grad_(), params)
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+def _lm_cfg_variant(cfg, variant: str):
+    if variant == "full":
+        return cfg
+    n = {"cost1": 1, "cost2": 2, "cost4": 4}[variant]
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def _lm_state(cfg, opt_cfg, *, device, generator):
+    params = tmodel.init_params(cfg, generator=generator, device=device)
+    return train_loop.init_state(_trainable(params), opt_cfg)
+
+
+def _lm_train_cell(cfg, shape, *, reduced, variant, device, generator):
+    # bf16 adam m/v for every full LM train (repro's §Perf iteration 3)
+    opt_cfg = OPT_CFG_BF16 if not reduced else OPT_CFG
+    if reduced:
+        cfg = dataclasses.replace(cfg, n_layers=2)
+        seq, gb, accum = 32, 4, 2
+    else:
+        cfg = _lm_cfg_variant(cfg, variant)
+        seq, gb = shape["seq_len"], shape["global_batch"]
+        accum = 1 if variant != "full" else LM_TRAIN_ACCUM
+    ub = max(gb // LM_TRAIN_ACCUM, 1) if not reduced else gb // accum
+
+    def make_step(backend=cfg.backend):
+        c = dataclasses.replace(cfg, backend=backend)
+        return train_loop.make_train_step(lambda p, b: tmodel.loss_fn(p, b, c), opt_cfg,
+                                          grad_accum=accum)
+
+    state = _lm_state(cfg, opt_cfg, device=device, generator=generator)
+    tok_shape = (accum, ub, seq) if accum > 1 else (ub, seq)
+    tokens = _tokens(tok_shape, cfg.vocab, reduced=reduced, device=device, generator=generator)
+    return CellProgram(
+        step_fn=make_step(),
+        args=(state, {"tokens": tokens, "labels": tokens}),
+        meta={"cfg": cfg, "tokens_per_step": gb * seq, "accum": accum, "opt_cfg": opt_cfg,
+              "loss": functools.partial(tmodel.loss_fn, cfg=cfg), "make_step": make_step},
+    )
+
+
+def _lm_prefill_cell(cfg, shape, *, reduced, variant, device, generator):
+    if reduced:
+        cfg = dataclasses.replace(cfg, n_layers=2)
+        seq, b = 32, 2
+    else:
+        cfg = _lm_cfg_variant(cfg, variant)
+        seq, b = shape["seq_len"], shape["global_batch"]
+
+    def make_step(backend=cfg.backend, **changes):
+        c = dataclasses.replace(cfg, backend=backend, **changes)
+
+        @torch.no_grad()
+        def step(params, tokens):
+            return tmodel.forward(params, tokens, c)[0]
+        return step
+
+    params = tmodel.init_params(cfg, generator=generator, device=device)
+    tokens = _tokens((b, seq), cfg.vocab, reduced=reduced, device=device, generator=generator)
+    return CellProgram(step_fn=make_step(), args=(params, tokens),
+                       meta={"cfg": cfg, "make_step": make_step})
+
+
+def _lm_decode_cell(cfg, shape, *, reduced, variant, device, generator):
+    if reduced:
+        cfg = dataclasses.replace(cfg, n_layers=2)
+        seq, b = 64, 2
+    else:
+        cfg = _lm_cfg_variant(cfg, variant)
+        seq, b = shape["seq_len"], shape["global_batch"]
+
+    def make_step(backend=cfg.backend, **changes):
+        c = dataclasses.replace(cfg, backend=backend, **changes)
+
+        @torch.no_grad()
+        def step(params, cache, tokens):
+            return tmodel.decode_step(params, cache, tokens, c)
+        return step
+
+    params = tmodel.init_params(cfg, generator=generator, device=device)
+    cache = tmodel.init_cache(cfg, b, seq, device=device)
+    tokens = _tokens((b, 1), cfg.vocab, reduced=reduced, device=device, generator=generator)
+    return CellProgram(step_fn=make_step(), args=(params, cache, tokens),
+                       meta={"cfg": cfg, "batch": b, "cache_len": seq, "make_step": make_step})
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
 def _pad512(x: int) -> int:
     return -(-x // 512) * 512
 
@@ -282,19 +406,108 @@ def _gnn_sampled_cell(entry, cfg, shape, *, reduced, device, generator):
     )
 
 
-def build_cell(arch: str, shape_name: str, *, reduced: bool = False, device="cuda",
-               seed: int = 0) -> CellProgram:
-    """The (arch, shape) training cell on ``device``; weights and (when not
-    reduced) data drawn from a ``torch.Generator`` seeded with ``seed``."""
+# ---------------------------------------------------------------------------
+# recsys family
+# ---------------------------------------------------------------------------
+def _recsys_cell(cfg, shape, *, reduced, device, generator):
+    kind = shape["kind"]
+    if reduced:
+        b, ncand = 8, 64
+    else:
+        b = shape["batch"]
+        ncand = shape.get("n_candidates", 0)
+    nf_u, nf_i, k = cfg.n_user_fields, cfg.n_item_fields, cfg.bag_size
+
+    def mk_bags(n, nf):
+        # ids in [-1, n_items), -1 padding: practically full bags
+        if reduced:
+            rng = np.random.default_rng(0)
+            return torch.from_numpy(
+                rng.integers(-1, cfg.n_items, (n, nf, k)).astype(np.int32)).to(device)
+        return torch.randint(-1, cfg.n_items, (n, nf, k), generator=generator,
+                             dtype=torch.int32, device=device)
+
+    params = tt_mod.init_params(cfg, generator=generator, device=device)
+    if kind == "train":
+        def make_step(backend=cfg.backend):
+            c = dataclasses.replace(cfg, backend=backend)
+            return train_loop.make_train_step(lambda p, bb: tt_mod.loss_fn(p, bb, c), OPT_CFG)
+
+        state = train_loop.init_state(_trainable(params), OPT_CFG)
+        batch = {"user_bags": mk_bags(b, nf_u), "item_bags": mk_bags(b, nf_i),
+                 "item_logq": torch.zeros((b,), dtype=torch.float32, device=device)}
+        return CellProgram(step_fn=make_step(), args=(state, batch),
+                           meta={"cfg": cfg, "opt_cfg": OPT_CFG, "make_step": make_step,
+                                 "loss": functools.partial(tt_mod.loss_fn, cfg=cfg)})
+    if kind == "serve":
+        def make_step(backend=cfg.backend):
+            c = dataclasses.replace(cfg, backend=backend)
+            return torch.no_grad()(lambda p, batch: tt_mod.serve_step(p, batch, c))
+
+        batch = {"user_bags": mk_bags(b, nf_u), "item_bags": mk_bags(b, nf_i)}
+        return CellProgram(step_fn=make_step(), args=(params, batch),
+                           meta={"cfg": cfg, "make_step": make_step})
+    # retrieval: 1 query vs n_candidates
+
+    def make_step(backend=cfg.backend):
+        c = dataclasses.replace(cfg, backend=backend)
+        return torch.no_grad()(lambda p, batch: tt_mod.score_candidates(
+            p, batch["user_bags"], batch["cand_bags"], c))
+
+    batch = {"user_bags": mk_bags(1, nf_u), "cand_bags": mk_bags(ncand, nf_i)}
+    return CellProgram(step_fn=make_step(), args=(params, batch),
+                       meta={"cfg": cfg, "make_step": make_step})
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+def build_cell(arch: str, shape_name: str, *, reduced: bool = False, variant: str = "full",
+               device="cuda", seed: int = 0) -> CellProgram:
+    """The (arch, shape) cell on ``device``; weights and (when not reduced)
+    data drawn from a ``torch.Generator`` seeded with ``seed``."""
     entry = cfgbase.get(arch)
     shape = cfgbase.FAMILY_SHAPES[entry.family][shape_name]
-    if entry.family != "gnn":
-        raise NotImplementedError(
-            f"{arch}: the {entry.family} cells wait for their training ports "
-            "(ROADMAP.md §1 item 4)")
     cfg = entry.smoke if reduced else entry.full
     dev = util.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if shape["kind"] == "sampled":
-        return _gnn_sampled_cell(entry, cfg, shape, reduced=reduced, device=dev, generator=gen)
-    return _gnn_train_cell(entry, cfg, shape, reduced=reduced, device=dev, generator=gen)
+    kw = dict(reduced=reduced, device=dev, generator=gen)
+    if entry.family == "lm":
+        kind = shape["kind"]
+        build = {"train": _lm_train_cell, "prefill": _lm_prefill_cell}.get(kind, _lm_decode_cell)
+        cell = build(cfg, shape, variant=variant, **kw)
+        cell.meta["full_layers"] = entry.full.n_layers
+        return cell
+    if entry.family == "gnn":
+        if variant != "full":
+            raise NotImplementedError(
+                f"{arch}: the {variant!r} variants wait for launch/roofline.py "
+                "(ROADMAP.md §1 item 3)")
+        if shape["kind"] == "sampled":
+            return _gnn_sampled_cell(entry, cfg, shape, **kw)
+        return _gnn_train_cell(entry, cfg, shape, **kw)
+    return _recsys_cell(cfg, shape, **kw)
+
+
+def build_opt_cell(arch: str, *, variant: str = "cost1", device="cuda",
+                   seed: int = 0) -> CellProgram:
+    """Optimizer-apply-only program (LM): one ``OPT_CFG_BF16`` update of the
+    ``variant``'s state by float32 grads (drawn N(0, 1) from the seed),
+    separating the optimizer's time from the forward and backward."""
+    entry = cfgbase.get(arch)
+    cfg = _lm_cfg_variant(entry.full, variant.replace("opt", "cost"))
+    dev = util.resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = _lm_state(cfg, OPT_CFG_BF16, device=dev, generator=gen)
+    grads = tree_mod.tree_map(
+        lambda p: torch.randn(p.shape, generator=gen, dtype=torch.float32, device=dev),
+        state["params"])
+
+    def step(state, grads):
+        new_params, new_opt, _ = opt_mod.update(grads, state["opt_state"], state["params"],
+                                                OPT_CFG_BF16)
+        return {"params": new_params, "opt_state": new_opt}
+
+    return CellProgram(step_fn=step, args=(state, grads),
+                       meta={"cfg": cfg, "opt_cfg": OPT_CFG_BF16,
+                             "full_layers": entry.full.n_layers})

@@ -1,11 +1,14 @@
-"""Training launcher: end-to-end training of a registered GNN arch.
+"""Training launcher: end-to-end training of any registered arch.
 
 The counterpart of ``repro.launch.train``: trains the REDUCED config of an
-arch's cell on synthetic data, with checkpoint/restart.  Checkpoints are
-``repro``'s layout and keys (``checkpoint.manager``), so either package
-resumes from the other's.
+arch's train cell (LM ``train_4k``, GNN ``full_graph_sm``, recsys
+``train_batch`` unless ``--shape`` names another) on synthetic data, with
+checkpoint/restart.  Checkpoints are ``repro``'s layout and keys
+(``checkpoint.manager``; a bfloat16 leaf as its raw 16-bit words), so the
+port resumes from ``repro``'s and ``repro`` from the port's float32 ones.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora --steps 50
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-235b-a22b
   PYTHONPATH=src python -m repro_torch.launch.train --arch mace --device cpu \
       --steps 20 --ckpt-dir /tmp/ck --resume
 """
@@ -20,7 +23,6 @@ import torch
 from ..checkpoint import manager as ckpt
 from ..configs import base as cfgbase
 from ..core import tree as tree_mod
-from ..core import util
 from . import steps
 
 
@@ -31,7 +33,7 @@ def default_shape(arch: str) -> str:
 
 def save(ckpt_dir: str, step: int, state: dict) -> str:
     """Checkpoint ``state`` (host copies of its tensors) at ``step``."""
-    return ckpt.save(ckpt_dir, step, tree_mod.tree_map(util.host, state))
+    return ckpt.save(ckpt_dir, step, tree_mod.tree_map(ckpt.host_array, state))
 
 
 @torch.no_grad()

@@ -21,15 +21,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-import numpy as np
 import torch
-from torch import nn
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ...core import csr as csr_mod, util
-from ...core import tree as tree_mod
 from ...kernels.csr_build import kernel as cb_kernel
 from ...kernels.edge_segment_sum import ops as seg_ops
+from ..param_tree import ParamTree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,35 +231,8 @@ def init_mlp(generator: torch.Generator, sizes, *, device, dtype=torch.float32):
 
 
 # ---------------------------------------------------------------------------
-# parameter trees as modules
+# the model as a module
 # ---------------------------------------------------------------------------
-class ParamTree(nn.Module):
-    """An ``nn.Module`` holding a tree of parameters under the tree's own
-    names: a dict key or a sequence index names each child."""
-
-    def __init__(self, tree):
-        super().__init__()
-        self._kind = type(tree)
-        self._keys = list(tree) if isinstance(tree, dict) else list(range(len(tree)))
-        for k in self._keys:
-            v = tree[k]
-            if isinstance(v, (dict, list, tuple)):
-                self.add_module(str(k), ParamTree(v))
-            else:
-                self.register_parameter(
-                    str(k), v if isinstance(v, nn.Parameter) else nn.Parameter(v))
-
-    def tree(self):
-        """The tree, its leaves the module's ``nn.Parameter`` objects."""
-        vals = []
-        for k in self._keys:
-            v = getattr(self, str(k))
-            vals.append(v.tree() if isinstance(v, ParamTree) else v)
-        if self._kind is dict:
-            return dict(zip(self._keys, vals))
-        return self._kind(vals)
-
-
 class GNNModel(ParamTree):
     """A GNN: its parameter tree and config, and the module's functional
     ``forward(params, g, cfg)``."""
@@ -273,14 +244,6 @@ class GNNModel(ParamTree):
 
     def forward(self, g: dict) -> torch.Tensor:
         return self._forward(self.tree(), g, self.cfg)
-
-
-def tensors_from_numpy(params_np, *, device):
-    """A tree of numpy arrays (``repro``'s pytree through ``np.asarray``)
-    as float32 tensors on ``device``."""
-    dev = util.resolve_device(device)
-    return tree_mod.tree_map(
-        lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev), params_np)
 
 
 def check_shard_axes(cfg) -> None:

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from ...core import util
+from ..param_tree import tensors_from_numpy
 from . import common
 
 
@@ -82,4 +83,4 @@ def init_model(cfg: GCNConfig, *, generator: torch.Generator,
 
 def from_jax_params(params_np, cfg: GCNConfig, *, device="cuda") -> common.GNNModel:
     """A model holding ``repro``'s ``init_params`` pytree, given as numpy arrays."""
-    return common.GNNModel(common.tensors_from_numpy(params_np, device=device), cfg, forward)
+    return common.GNNModel(tensors_from_numpy(params_np, device=device), cfg, forward)

@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...core import util
+from ..param_tree import tensors_from_numpy
 from . import common
 
 
@@ -241,4 +242,4 @@ def init_model(cfg: MACEConfig, *, generator: torch.Generator,
 
 def from_jax_params(params_np, cfg: MACEConfig, *, device="cuda") -> common.GNNModel:
     """A model holding ``repro``'s ``init_params`` pytree, given as numpy arrays."""
-    return common.GNNModel(common.tensors_from_numpy(params_np, device=device), cfg, forward)
+    return common.GNNModel(tensors_from_numpy(params_np, device=device), cfg, forward)

@@ -13,6 +13,7 @@ import math
 import torch
 
 from ...core import util
+from ..param_tree import tensors_from_numpy
 from . import common
 
 
@@ -107,4 +108,4 @@ def init_model(cfg: SchNetConfig, *, generator: torch.Generator,
 
 def from_jax_params(params_np, cfg: SchNetConfig, *, device="cuda") -> common.GNNModel:
     """A model holding ``repro``'s ``init_params`` pytree, given as numpy arrays."""
-    return common.GNNModel(common.tensors_from_numpy(params_np, device=device), cfg, forward)
+    return common.GNNModel(tensors_from_numpy(params_np, device=device), cfg, forward)

@@ -10,6 +10,10 @@ the main path.  ``impl="ref"`` still calls the reference and
 ``impl="blocked"`` the ported scan (with ``repro``'s routing); within the
 flash op ``backend="torch"`` is the kernel's plain version on the card,
 and a CPU tensor always takes the plain version.
+
+``ref`` and ``blocked`` are plain torch and run under autograd.  ``flash``
+has no backward (nor has ``repro``'s Pallas kernel): a call that records
+grads through it raises rather than switching to ``blocked``.
 """
 from __future__ import annotations
 
@@ -85,6 +89,9 @@ def attention(q, k, v, *, impl="blocked", causal=True, window=0, block=512,
             return ref_attention(q, k, v, causal=causal, window=window)
         return blocked_attention(q, k, v, causal=causal, window=window, block=block)
     if impl == "flash":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "attn_impl='flash' has no backward: train with 'blocked' or 'ref'")
         return fa_ops.attention(q, k, v, causal=causal, window=window, backend=backend,
                                 block_q=block, block_k=block)
     raise ValueError(impl)

@@ -1,13 +1,14 @@
-"""LM transformer configuration (the counterpart of
-``repro.models.transformer.config``), dense models only.
+"""Unified LM transformer configuration (the counterpart of
+``repro.models.transformer.config``): dense (mistral-large, qwen2,
+h2o-danube w/ SWA) and MoE (qwen3-moe, arctic w/ dense residual).
 
-``repro``'s ``TransformerConfig`` less what no ported code reads: ``remat``
-(training), ``scan_layers`` (a Python loop over the layers has no
-counterpart), ``batch_axes`` and ``tp_axis`` (the mesh) and
-``n_active_params`` (equal to ``n_params`` without MoE).  A config that
-sets ``moe`` is refused until ``moe.py`` is ported.  The dtypes are torch
-dtypes; ``backend`` picks the attention kernel as ``TwoTowerConfig``'s
-does (``"auto"`` | ``"cuda"`` | ``"torch"``).
+``repro``'s ``TransformerConfig`` less what belongs to XLA or the mesh:
+``scan_layers`` (a ``lax.scan`` over the stacked layers; the port runs a
+Python loop over them, so there is nothing to choose), ``batch_axes`` and
+``tp_axis`` (activation sharding constraints, which come with the mesh,
+ROADMAP.md §1 item 3).  The dtypes are torch dtypes; ``backend`` picks the
+attention kernel as ``TwoTowerConfig``'s does (``"auto"`` | ``"cuda"`` |
+``"torch"``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,15 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    dense_residual_ff: int = 0   # arctic: parallel dense FFN width (0 = off)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,18 +41,15 @@ class TransformerConfig:
     sliding_window: int = 0             # h2o-danube SWA; 0 = full attention
     rope_theta: float = 1e6
     norm_eps: float = 1e-5
-    moe: None = None                    # MoE: not ported
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     # numerics / memory policy
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True                  # recompute each layer in the backward
     attn_impl: str = "blocked"          # ref | blocked | flash
     attn_block: int = 512               # kv block for blocked/flash impls
     backend: str = "auto"               # flash kernel: "auto" | "cuda" | "torch"
-
-    def __post_init__(self):
-        if self.moe is not None:
-            raise ValueError(f"{self.name}: MoE layers are not ported (moe.py)")
 
     @property
     def head_dim(self) -> int:
@@ -52,14 +59,36 @@ class TransformerConfig:
     def is_subquadratic(self) -> bool:
         return self.sliding_window > 0
 
+    def _attn_params(self) -> int:
+        d, hq, hkv, dh = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
+        return d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+
     def n_params(self) -> int:
         """Total parameter count (embeddings included)."""
         d, l = self.d_model, self.n_layers
         hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
-        attn = d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+        attn = self._attn_params()
         if self.qkv_bias:
             attn += (hq + 2 * hkv) * dh
-        ff = 3 * d * self.d_ff
+        if self.moe is not None:
+            ff = self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+            ff += d * self.moe.n_experts  # router
+            if self.moe.dense_residual_ff:
+                ff += 3 * d * self.moe.dense_residual_ff
+        else:
+            ff = 3 * d * self.d_ff
         norms = 2 * d * l + d
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return l * (attn + ff) + norms + emb
+
+    def n_active_params(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.moe is None:
+            return self.n_params()
+        d, l = self.d_model, self.n_layers
+        ff = self.moe.top_k * 3 * d * self.moe.d_ff_expert
+        ff += d * self.moe.n_experts
+        if self.moe.dense_residual_ff:
+            ff += 3 * d * self.moe.dense_residual_ff
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return l * (self._attn_params() + ff) + 2 * d * l + d + emb

@@ -36,6 +36,24 @@ class OptimizerConfig:
     min_lr_ratio: float = 0.1
 
 
+#: elements of a leaf AdamW updates at a time: its float32 temporaries stay
+#: a few times this, whatever the leaf's size (a 5M x 256 table's would be
+#: ~25 GB); the update is elementwise, so the chunks give the same bits
+UPDATE_CHUNK = 1 << 26
+
+
+def _row_chunks(*ts):
+    """Views of ``ts`` (one shape) over runs of leading rows, each at most
+    ``UPDATE_CHUNK`` elements (or one row); the whole tensors if small."""
+    first = ts[0]
+    if first.ndim == 0 or first.numel() <= UPDATE_CHUNK:
+        yield ts
+        return
+    rows = max(UPDATE_CHUNK // (first.numel() // first.shape[0]), 1)
+    for i in range(0, first.shape[0], rows):
+        yield tuple(t[i:i + rows] for t in ts)
+
+
 def schedule(step, cfg: OptimizerConfig) -> torch.Tensor:
     """Learning rate at ``step`` (int or int32 tensor): linear warmup, then
     cosine decay to ``min_lr_ratio``; float32, on the step's device."""
@@ -89,17 +107,27 @@ def init(params, cfg: OptimizerConfig) -> dict:
 @torch.no_grad()
 def update(grads, state: dict, params, cfg: OptimizerConfig):
     """One step in place: returns (params, state, metrics), the same trees
-    as given, holding the new values."""
+    as given, holding the new values.
+
+    Each grad is taken to float32 and clipped as its leaf is updated
+    (``clip_by_global_norm``'s product, leaf by leaf; AdamW also a run of
+    rows at a time, ``UPDATE_CHUNK``), so the update never holds a float32
+    copy of the whole grads tree (bfloat16 grads: twice their size).
+    """
     if cfg.name not in ("adamw", "adafactor", "sgd"):
         raise ValueError(cfg.name)
     state["step"].add_(1)
     step = state["step"]
     lr = schedule(step, cfg)
-    grads = tree_mod.tree_map(lambda g: g.to(torch.float32), grads)
+    gn = global_norm(grads)
     if cfg.clip_norm > 0:
-        grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+        def f32(g):
+            return g.to(torch.float32) * scale
     else:
-        gn = global_norm(grads)
+        def f32(g):
+            return g.to(torch.float32)
 
     if cfg.name == "adamw":
         b1, b2 = cfg.b1, cfg.b2
@@ -107,6 +135,7 @@ def update(grads, state: dict, params, cfg: OptimizerConfig):
         bc2 = 1 - b2 ** step.to(torch.float32)
 
         def upd(p, g, m, v):
+            g = f32(g)
             m.copy_(b1 * m.to(torch.float32) + (1 - b1) * g)
             v.copy_(b2 * v.to(torch.float32) + (1 - b2) * g * g)
             mh = m.to(torch.float32) / bc1
@@ -116,11 +145,13 @@ def update(grads, state: dict, params, cfg: OptimizerConfig):
                 d = d + cfg.weight_decay * p.to(torch.float32)
             p.copy_(p.to(torch.float32) - lr * d)
 
-        tree_mod.tree_map(upd, params, grads, state["m"], state["v"])
+        tree_mod.tree_map(lambda *leaf: [upd(*c) for c in _row_chunks(*leaf)],
+                          params, grads, state["m"], state["v"])
     elif cfg.name == "adafactor":
         eps = 1e-30
 
         def upd(p, g, f):
+            g = f32(g)
             g32 = g * g + eps
             if p.ndim >= 2:
                 vr = 0.95 * f["vr"].to(torch.float32) + 0.05 * g32.mean(-1)
@@ -141,5 +172,5 @@ def update(grads, state: dict, params, cfg: OptimizerConfig):
 
         tree_mod.tree_map(upd, params, grads, state["f"])
     else:
-        tree_mod.tree_map(lambda p, g: p.copy_(p.to(torch.float32) - lr * g), params, grads)
+        tree_mod.tree_map(lambda p, g: p.copy_(p.to(torch.float32) - lr * f32(g)), params, grads)
     return params, state, {"lr": lr, "grad_norm": gn}

@@ -104,3 +104,40 @@ def test_embedding_bag_rejects_unknown_combine():
     with pytest.raises(ValueError, match="combine"):
         bag_kernel.embedding_bag(torch.from_numpy(table), torch.from_numpy(idx),
                                  torch.from_numpy(w), "min")
+
+
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("v,d,b,k", [(50, 16, 8, 5), (200, 128, 4, 16), (20, 6, 40, 8)])
+def test_embedding_bag_grad_matches_autograd_of_plain_bag(combine, v, d, b, k):
+    """The op's table grad (its plain backward) equals autograd through the
+    plain gather-and-sum bag bit for bit: the same products, added into each
+    row in the same order.  Repeated ids, padding, ids >= V and an empty bag
+    included; the forward equals the undifferentiated op's."""
+    table, idx, w = _case(v + d, v, d, b, k)
+    idx[2, :] = idx[3, 0]  # one row many times in a bag
+    cot = torch.from_numpy(np.random.default_rng(d).standard_normal((b, d)).astype(np.float32))
+    t = torch.tensor(table, requires_grad=True)
+    out = bag_ops.embedding_bag(t, torch.from_numpy(idx), torch.from_numpy(w), combine=combine)
+    with torch.no_grad():
+        plain = bag_ops.embedding_bag(torch.from_numpy(table), torch.from_numpy(idx),
+                                      torch.from_numpy(w), combine=combine)
+    assert torch.equal(out.detach(), plain)
+    (got,) = torch.autograd.grad((out * cot).sum(), t)
+    k_pad = int(2 ** np.ceil(np.log2(k)))
+    pidx = np.pad(idx, ((0, 0), (0, k_pad - k)), constant_values=-1)
+    pw = np.pad(w, ((0, 0), (0, k_pad - k)))
+    t2 = torch.tensor(table, requires_grad=True)
+    ref = bag_ops.embedding_bag_reference(t2, torch.from_numpy(pidx), torch.from_numpy(pw),
+                                          combine=combine)
+    (want,) = torch.autograd.grad((ref * cot).sum(), t2)
+    assert torch.equal(got, want)
+    assert float(got.abs().max()) > 0
+
+
+def test_embedding_bag_max_has_no_backward():
+    table, idx, w = _case(2, 10, 4, 2, 4)
+    t = torch.tensor(table, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="max"):
+        bag_ops.embedding_bag(t, torch.from_numpy(idx), torch.from_numpy(w), combine="max")
+    with torch.no_grad():  # serving through max is fine
+        bag_ops.embedding_bag(t, torch.from_numpy(idx), torch.from_numpy(w), combine="max")

@@ -114,6 +114,18 @@ def test_gnn_training_imports_neither_jax_nor_repro(module):
     _imports_alone(module)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.param_tree", "repro_torch.models.transformer.config",
+    "repro_torch.models.transformer.moe", "repro_torch.models.transformer.model",
+    "repro_torch.models.transformer.attention", "repro_torch.models.recsys.two_tower",
+    "repro_torch.kernels.embedding_bag.ops", "repro_torch.runtime.compression",
+    "repro_torch.configs.qwen2_72b", "repro_torch.configs.mistral_large_123b",
+    "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.configs.arctic_480b",
+])
+def test_lm_and_recsys_training_import_neither_jax_nor_repro(module):
+    _imports_alone(module)
+
+
 def test_chip_smoke_imports_only_the_port():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
@@ -147,7 +159,9 @@ GNN_ARCHS = {"gcn": "gcn-cora", "schnet": "schnet", "graphcast": "graphcast", "m
     ["from_coo", "make_graph", "from_csr", "empty", "from_state_tree", "init_model",
      "init_cache", "from_jax_params", "from_dense", "recover", "bitset.make", "build_rep",
      "seed_visits_row", "serve.main", "shard_csr", "sharded.from_state_trees",
-     "sharded.restore", "image_from_state_tree", "build_cell", "train.main"]
+     "sharded.restore", "image_from_state_tree", "build_cell", "train.main",
+     "lm.build_cell", "recsys.build_cell", "build_opt_cell", "lm.train.main",
+     "recsys.train.main", "two_tower.init_model", "two_tower.from_jax_params"]
     + [f"{r}.{e}" for r in REPS for e in ("from_csr", "from_state_tree")]
     + [f"{m}.{e}" for m in GNNS for e in ("init_model", "from_jax_params")],
 )
@@ -185,6 +199,19 @@ def test_default_device_raises_without_gpu(entry):
             distributed.shard_csr(c, 2, device="cpu").state_trees()[0]),
         "build_cell": lambda: launch_steps.build_cell("gcn-cora", "full_graph_sm", reduced=True),
         "train.main": lambda: launch_train.main(["--arch", "gcn-cora", "--steps", "1"]),
+        "lm.build_cell": lambda: launch_steps.build_cell("qwen3-moe-235b-a22b", "train_4k",
+                                                         reduced=True),
+        "recsys.build_cell": lambda: launch_steps.build_cell("two-tower-retrieval",
+                                                             "train_batch", reduced=True),
+        "build_opt_cell": lambda: launch_steps.build_opt_cell("h2o-danube-1.8b"),
+        "lm.train.main": lambda: launch_train.main(["--arch", "arctic-480b", "--steps", "1"]),
+        "recsys.train.main": lambda: launch_train.main(["--arch", "two-tower-retrieval",
+                                                        "--steps", "1"]),
+        "two_tower.init_model": lambda: two_tower.init_model(two_tower_retrieval.SMOKE,
+                                                             generator=torch.Generator()),
+        "two_tower.from_jax_params": lambda: two_tower.from_jax_params(
+            two_tower.init_params(two_tower_retrieval.SMOKE, generator=torch.Generator(),
+                                  device="cpu"), two_tower_retrieval.SMOKE),
     }
     for name, mod in GNNS.items():
         cfg = launch_steps.cfgbase.get(GNN_ARCHS[name]).smoke
@@ -341,4 +368,17 @@ def test_cpu_sharded_graph_launches_no_kernel():
                                 deletes=edgebatch.random_deletions(rng, c, 30)))
     assert g.reverse_walk(3).shape == (c.n,) and g.device.type == "cpu"
     assert g.seal_generation(1).walk(2, visits0=torch.ones((2, c.n))).shape == (2, c.n)
+    assert all(k.launches == 0 for k in KERNELS.values())
+
+
+def test_cpu_lm_and_recsys_train_steps_launch_no_kernel():
+    """A train step of the MoE and two-tower cells on CPU tensors: the bag
+    and attention take their plain versions, and no wrapper counts."""
+    for k in KERNELS.values():
+        k.launches = 0
+    for arch, shape in (("qwen3-moe-235b-a22b", "train_4k"),
+                        ("two-tower-retrieval", "train_batch")):
+        cell = launch_steps.build_cell(arch, shape, reduced=True, device="cpu")
+        _, metrics = cell.step_fn(*cell.args)
+        assert np.isfinite(float(metrics["loss"]))
     assert all(k.launches == 0 for k in KERNELS.values())

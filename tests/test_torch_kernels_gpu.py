@@ -1278,3 +1278,95 @@ def test_from_coo_reads_device_ids_in_place(cuda):
     assert KERNELS["degree_offsets"].launches == before + 1
     assert torch.equal(got.offsets, want.offsets) and torch.equal(got.dst, want.dst)
     assert got.wgt is None and got.m == want.m
+
+
+# -- LM and two-tower training on the card (-k train_on_card) ---------------
+@pytest.mark.parametrize("hq,hkv", [(64, 4), (56, 8), (64, 8), (96, 8)],
+                         ids=["qwen3_g16", "arctic_g7", "qwen2_g8", "mistral_g12"])
+def test_flash_attention_large_lm_geometry_on_card(cuda, hq, hkv):
+    """The large LMs' heads (D = 128, groups 16 / 7 / 8 / 12) in bfloat16,
+    causal, on the tensor-core kernel, against the plain attention."""
+    q, k, v = _fa_inputs(cuda, torch.bfloat16, 1, hq, hkv, 1024, 1024, 128, seed=hq + hkv)
+    paths = dict(fa_kernel.flash_attention.path_launches)
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=0)
+    assert fa_kernel.flash_attention.path_launches["wgmma"] == paths["wgmma"] + 1
+    _fa_close(got, fa_kernel.flash_attention_torch(q, k, v, causal=True, window=0), v,
+              torch.bfloat16)
+
+
+def test_bag_train_on_card_kernel_forward_plain_backward(cuda):
+    """The op under autograd on the card: the forward launches the kernel,
+    the table grad (plain index_add_) equals the CPU's within the sums'
+    reordering (atomic adds: 2*K*2^-24 of each row's sum of |terms|)."""
+    rng = np.random.default_rng(3)
+    v, d, b, k = 500, 64, 300, 16
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    idx = rng.integers(-1, v // 4, (b, k)).astype(np.int32)  # repeated rows
+    cot = rng.standard_normal((b, d)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        t = torch.tensor(table, device=dev, requires_grad=True)
+        before = KERNELS["embedding_bag"].launches
+        out = bag_ops.embedding_bag(t, torch.from_numpy(idx).to(dev), combine="mean")
+        assert KERNELS["embedding_bag"].launches == before + (dev == "cuda")
+        (grads[dev],) = torch.autograd.grad((out * torch.from_numpy(cot).to(dev)).sum(), t)
+    absum = np.zeros((v, d))
+    valid = idx >= 0
+    cnt = np.maximum(valid.sum(1, keepdims=True), 1)
+    np.add.at(absum, np.clip(idx, 0, v - 1)[valid],
+              np.abs(np.repeat(cot / cnt, k, axis=0).reshape(b, k, d)[valid]))
+    err = np.abs(grads["cuda"].cpu().numpy() - grads["cpu"].numpy())
+    assert (err <= 2 * b * k * U * absum + 1e-30).all()
+
+
+def test_moe_ffn_on_card_matches_cpu(cuda):
+    """moe_ffn (float32 compute) on the card against the CPU: the dispatch
+    state bit for bit, the output within 1e-5 of max|out|, aux rtol 1e-5."""
+    from repro_torch.models.transformer import moe
+
+    rng = np.random.default_rng(4)
+    t, d, e, kk, f = 512, 64, 16, 4, 48
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    ws = [rng.standard_normal(s).astype(np.float32) / 4
+          for s in ((d, e), (e, d, f), (e, d, f), (e, f, d))]
+    cap = 64  # against a mean load of 128: drops
+    out = {}
+    for dev in ("cpu", "cuda"):
+        args = [torch.from_numpy(a).to(dev) for a in [x, *ws]]
+        out[dev] = (moe.dispatch(args[0], args[1], top_k=kk, capacity=cap),
+                    *moe.moe_ffn(*args, top_k=kk, capacity=cap, compute_dtype=torch.float32))
+    for key in ("slot", "keep", "idx_buf", "flat_expert"):
+        assert torch.equal(getattr(out["cuda"][0], key).cpu(), getattr(out["cpu"][0], key)), key
+    assert int(out["cpu"][0].dropped) > 0
+    scale = float(out["cpu"][1].abs().max())
+    torch.testing.assert_close(out["cuda"][1].cpu(), out["cpu"][1], rtol=1e-5, atol=1e-5 * scale)
+    torch.testing.assert_close(out["cuda"][2].cpu(), out["cpu"][2], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "two-tower-retrieval"])
+def test_train_on_card_matches_cpu(cuda, arch):
+    """Two train steps of the SMOKE cell on the card against the same steps
+    on the CPU, from the same weights: losses rtol 1e-5, params rtol 1e-5,
+    atol 1e-6; two bag launches a two-tower step, none for the LM (its
+    SMOKE attention is the dense reference)."""
+    shape = "train_batch" if arch == "two-tower-retrieval" else "train_4k"
+    cells = {dev: gnn_steps.build_cell(arch, shape, reduced=True, device=dev)
+             for dev in ("cpu", "cuda")}
+    with torch.no_grad():
+        tree.tree_map(lambda t, v: t.copy_(v), cells["cuda"].args[0]["params"],
+                      cells["cpu"].args[0]["params"])
+    losses = {}
+    for dev, cell in cells.items():
+        state, batch = cell.args
+        before = KERNELS["embedding_bag"].launches
+        losses[dev] = []
+        for _ in range(2):
+            state, m = cell.step_fn(state, batch)
+            losses[dev].append(float(m["loss"]))
+        bags = KERNELS["embedding_bag"].launches - before
+        assert bags == (4 if dev == "cuda" and arch == "two-tower-retrieval" else 0)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+    for (k, a), (_, b) in zip(tree.paths(cells["cuda"].args[0]["params"]),
+                              tree.paths(cells["cpu"].args[0]["params"])):
+        np.testing.assert_allclose(a.detach().float().cpu().numpy(), b.detach().float().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)

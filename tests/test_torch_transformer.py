@@ -18,7 +18,6 @@ import pytest
 import torch
 
 from repro.configs import base as j_base
-from repro.configs import h2o_danube_1_8b as j_danube
 from repro.kernels.flash_attention import ops as j_fa
 from repro.models.transformer import attention as j_attn
 from repro.models.transformer import config as j_cfg
@@ -29,9 +28,13 @@ from repro_torch.models.transformer import attention as attn
 from repro_torch.models.transformer import config as cfg_mod
 from repro_torch.models.transformer import model as tm
 
+j_base.all_archs()  # the whole registry, before any single config module loads
+
 F32 = dict(rtol=1e-4, atol=1e-4)
-#: ``repro``'s config fields the port leaves out (serving reads none of them)
-NOT_CARRIED = {"remat", "scan_layers", "batch_axes", "tp_axis"}
+#: ``repro``'s config fields the port leaves out: the layer scan (a Python
+#: loop in the port) and the mesh's activation sharding
+NOT_CARRIED = {"scan_layers", "batch_axes", "tp_axis"}
+LARGE_LM_ARCHS = ["qwen2-72b", "mistral-large-123b", "qwen3-moe-235b-a22b", "arctic-480b"]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -152,7 +155,7 @@ def test_with_backend_shares_weights_and_agrees():
     plain = model.with_backend("torch")
     assert plain.cfg.backend == "torch" and model.cfg.backend == "auto"
     assert plain.embed.data_ptr() == model.embed.data_ptr()
-    assert plain.layers[1].w2.data_ptr() == model.layers[1].w2.data_ptr()
+    assert plain.layers.w2[1].data_ptr() == model.layers.w2[1].data_ptr()
     toks = torch.from_numpy(_tokens(7, 1, 32, tc.vocab))
     assert torch.equal(plain(toks)[0], model(toks)[0])
 
@@ -161,33 +164,42 @@ def test_init_model_shapes_and_scale():
     cfg = danube.SMOKE
     m = tm.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     assert sum(p.numel() for p in m.parameters()) == cfg.n_params()
-    assert tuple(m.layers[0].wq.shape) == (64, 64) and tuple(m.layers[0].wk.shape) == (64, 32)
+    assert tuple(m.layers.wq.shape) == (2, 64, 64) and tuple(m.layers.wk.shape) == (2, 64, 32)
     assert tuple(m.unembed.shape) == (64, 256)
-    assert 0.8 < float(m.layers[0].w1.std() * 64 ** 0.5) < 1.2
-    assert bool((m.layers[1].ln2 == 1).all()) and bool((m.ln_f == 1).all())
+    assert 0.8 < float(m.layers.w1[0].std() * 64 ** 0.5) < 1.2
+    assert bool((m.layers.ln2[1] == 1).all()) and bool((m.ln_f == 1).all())
     shapes = tm.cache_shapes(danube.FULL, 128, 32768)
     assert tuple(shapes["k"].shape) == (24, 128, 8, 4096, 80)
     assert shapes["k"].dtype == torch.bfloat16 and shapes["k"].is_meta
 
 
-def test_moe_config_refused():
-    with pytest.raises(ValueError, match="MoE"):
-        cfg_mod.TransformerConfig(name="m", n_layers=1, d_model=8, n_heads=1, n_kv_heads=1,
-                                  d_ff=8, vocab=8, moe=object())
-
-
-@pytest.mark.parametrize("which", ["FULL", "SMOKE"])
-def test_configs_match_repro(which):
-    j_c, c = getattr(j_danube, which), getattr(danube, which)
+def _check_config(arch, which):
+    j_c, c = getattr(j_base.get(arch), which.lower()), getattr(base.get(arch), which.lower())
     j_fields = {f.name: getattr(j_c, f.name) for f in dataclasses.fields(j_c)}
     fields = {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
     assert fields.pop("backend") == "auto"
     for name in ("param_dtype", "compute_dtype"):
         j_fields[name] = DTYPES[j_fields[name]]
+    for f in (fields, j_fields):
+        f["moe"] = f["moe"] and dataclasses.asdict(f["moe"])
     assert set(j_fields) - set(fields) == NOT_CARRIED
     assert fields == {k: v for k, v in j_fields.items() if k not in NOT_CARRIED}
-    assert c.n_params() == j_c.n_params()
+    assert (c.n_params(), c.n_active_params()) == (j_c.n_params(), j_c.n_active_params())
     assert (c.head_dim, c.is_subquadratic) == (j_c.head_dim, j_c.is_subquadratic)
+    assert base.get(arch).skip_shapes == j_base.get(arch).skip_shapes
+
+
+@pytest.mark.parametrize("which", ["FULL", "SMOKE"])
+def test_configs_match_repro(which):
+    _check_config("h2o-danube-1.8b", which)
+
+
+@pytest.mark.parametrize("which", ["FULL", "SMOKE"])
+@pytest.mark.parametrize("arch", LARGE_LM_ARCHS)
+def test_large_lm_configs_match_repro(arch, which):
+    """qwen2-72b, mistral-large-123b and the two MoE configs, field for
+    field (``MoEConfig`` too), with their counts and skipped shapes."""
+    _check_config(arch, which)
 
 
 def test_lm_shapes_match_repro():

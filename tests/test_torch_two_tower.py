@@ -1,11 +1,14 @@
-"""Two-tower serving parity: the port's model against ``repro``'s.
+"""Two-tower parity: the port's model against ``repro``'s, serving and
+training.
 
 ``repro``'s ``init_params`` is carried across with ``from_jax_params``; the
 same numpy bags go through both.  ``repro`` runs its jnp bag path
 (``use_kernel=False``: the Pallas kernel needs a TPU outside interpret
 mode, and ``tests/test_torch_embedding_bag.py`` holds the kernel itself).
 Scores agree within rtol 1e-5 and atol 1e-6: float32 products of up to
-1024 terms summed in other orders by XLA and PyTorch.
+1024 terms summed in other orders by XLA and PyTorch.  The in-batch
+softmax loss and every gradient (the tables' through the bag's plain
+backward) agree within rtol 1e-4, atol 1e-6 of the leaf's max|grad|.
 """
 import dataclasses
 
@@ -20,20 +23,21 @@ from repro.configs import two_tower_retrieval as j_cfgs
 from repro.models.recsys import two_tower as j_tt
 from repro_torch.configs import base
 from repro_torch.configs import two_tower_retrieval as cfgs
+from repro_torch.core import tree
 from repro_torch.models.recsys import two_tower as tt
 
 #: FULL's widths (embed_dim 256, towers 1024-512-256, 4 and 2 fields, bags
 #: of 16) with a vocabulary of 1000
 FULL_WIDTH = dataclasses.replace(j_cfgs.FULL, n_users=1000, n_items=1000)
-#: ``repro``'s config fields the port leaves out (serving reads none of them)
-#: or renames (``use_kernel`` is ``backend``)
-NOT_CARRIED = {"use_kernel", "interaction", "shard_axes", "temperature"}
+#: ``repro``'s config fields the port renames (``use_kernel`` is ``backend``)
+NOT_CARRIED = {"use_kernel"}
 
 
-def _bags(rng, n, nf, k, vocab):
-    """Ids uniform over the vocabulary, a ragged tail of -1 (lengths 0..k)."""
+def _bags(rng, n, nf, k, vocab, min_len=0):
+    """Ids uniform over the vocabulary, a ragged tail of -1 (lengths
+    min_len..k)."""
     ids = rng.integers(0, vocab, (n, nf, k))
-    lens = rng.integers(0, k + 1, (n, nf, 1))
+    lens = rng.integers(min_len, k + 1, (n, nf, 1))
     return np.where(np.arange(k) < lens, ids, -1).astype(np.int32)
 
 
@@ -91,9 +95,10 @@ def test_init_model_shapes_and_scale():
     cfg = cfgs.SMOKE
     m = tt.init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     assert tuple(m.user.table.shape) == (cfg.n_users, cfg.embed_dim)
-    assert [tuple(w.shape) for w in m.item.w] == [(2 * 16, 32), (32, 16)]
+    tree = m.tree()
+    assert [tuple(lp["w"].shape) for lp in tree["item"]["mlp"]] == [(2 * 16, 32), (32, 16)]
     assert 0.005 < float(m.user.table.std()) < 0.015
-    assert all(bool((b == 0).all()) for b in m.user.b)
+    assert all(bool((lp["b"] == 0).all()) for lp in tree["user"]["mlp"])
 
 
 @pytest.mark.parametrize("which", ["FULL", "SMOKE"])
@@ -104,6 +109,37 @@ def test_configs_match_repro(which):
     assert j_fields["use_kernel"] is False and fields.pop("backend") == "auto"
     assert set(j_fields) - set(fields) == NOT_CARRIED
     assert fields == {k: v for k, v in j_fields.items() if k not in NOT_CARRIED}
+
+
+@pytest.mark.parametrize("j_cfg", [j_cfgs.SMOKE, FULL_WIDTH], ids=["smoke", "full_width"])
+def test_loss_and_grads_match_repro(j_cfg):
+    """In-batch sampled softmax with a logQ correction, at batch 16.  No
+    bag is empty: an example whose every bag is empty embeds to 0, where
+    ``repro``'s L2 norm has a NaN gradient."""
+    params, model = _models(j_cfg, 5)
+    rng = np.random.default_rng(6)
+    k, b = j_cfg.bag_size, 16
+    batch = {"user_bags": _bags(rng, b, j_cfg.n_user_fields, k, j_cfg.n_users, min_len=1),
+             "item_bags": _bags(rng, b, j_cfg.n_item_fields, k, j_cfg.n_items, min_len=1),
+             "item_logq": rng.uniform(-2, 0, b).astype(np.float32)}
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p: j_tt.loss_fn(p, {n: jnp.asarray(v) for n, v in batch.items()}, j_cfg),
+        has_aux=True))(params)
+    p = model.tree()
+    got, _ = tt.loss_fn(p, {n: torch.from_numpy(v) for n, v in batch.items()}, model.cfg)
+    np.testing.assert_allclose(float(got.detach()), float(loss), rtol=1e-4)
+    g = dict(zip([k for k, _ in tree.paths(p)], torch.autograd.grad(got, tree.leaves(p))))
+    want = dict(tree.paths(jax.tree.map(np.asarray, grads)))
+    assert sorted(g) == sorted(want)
+    for k, e in want.items():
+        np.testing.assert_allclose(g[k].numpy(), e, rtol=1e-4, atol=1e-6 * np.abs(e).max(),
+                                   err_msg=k)
+    assert all(float(g[f"{t}/table"].abs().max()) > 0 for t in ("user", "item"))
+
+
+def test_shard_axes_are_refused():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dataclasses.replace(cfgs.SMOKE, shard_axes=("data",))
 
 
 def test_recsys_shapes_match_repro():
