@@ -111,6 +111,26 @@ SNAP's soc-LiveJournal1):
           and later responses at coverage < 1, zero lost, every served walk
           checked against the oracle with its down rows masked (p50/p99
           timed); no plain tile cumsum or row merge runs
+  mesh    the sharded graph on a torch.distributed mesh: 4 ranks, one
+          shard each, spawned on the one card over gloo (4 ranks on one
+          card, not a multi-card figure), each holding only its own shard;
+          the local mode runs the same steps first and writes the CSR's
+          host arrays and its results under build/ (deleted after the
+          phase).  Every rank: shard_csr (timed), gather_csr bit for bit
+          against the CSR, the 42-step walk (timed, with the exchange's
+          host time and the step's event time) and a B = 16 batch (CUDA
+          events) bit for bit against the local mode's, exchange bytes of
+          exactly 3 x 524,288 x B x 4 a step; the update phase's plans
+          routed (a patch on a rank only if routed there, the mixed one
+          timed) and gather_csr bit for bit against the DiGraph's to_csr; a
+          DurableGraph over the mesh (step-0 checkpoint timed), a
+          shard.walk fault armed on rank 2 raised as ShardFaultError(2) on
+          every rank, the degraded walk at coverage 0.75 bit for bit
+          against the local mode's, rebuild_shard (timed); three durable
+          plans, a crash at durable.post_append, recover(mesh=) (timed)
+          bit for bit against an uncrashed twin's state_trees; a growth
+          plan re-sharding every rank (timed) and its walk bit for bit; the
+          ranks' kernel launches added to the path's
   walk_bsr
           a road graph at scale 24 (16,777,216 vertices, ~36.9M directed
           edges, the class of SuiteSparse's asia_osm) re-blocked into
@@ -300,6 +320,9 @@ SERVE_SEAL_BACKOFF_S = 0.5
 #: this fraction of |E| inserted and as many deleted) and its serving
 #: traffic (bench_serve's knobs, 120 requests, one shard.walk fault)
 SHARDS, SHARD_PLAN_FRAC, SHARD_SERVE_REQUESTS = 4, 1e-3, 120
+#: the mesh phase: its ranks (one shard each, all on the one card over
+#: gloo) and their deadline; every collective fails after 120 s
+MESH_RANKS, MESH_TIMEOUT_S = SHARDS, 420
 #: rows whose block spans at least a tile: the walk's hub-row band
 #: (ROADMAP.md §3) applies to them, the plain rtol to the rest
 HUB_DEGREE = 128
@@ -1409,6 +1432,277 @@ def sharded_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> N
         faultinject.disarm()
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+def mesh_rank(mesh, root: str) -> dict:
+    """One rank of the mesh phase, in its own process (see the module
+    docstring): shard ``mesh.rank`` of the social graph on ``mesh.device``,
+    driven through ShardedGraph on the mesh, every result held against the
+    local mode's files under ``root``.  -> its kernel launches (main-path
+    calls only), times and exchange counts.  A failed check raises, which
+    takes the other ranks down and fails the phase."""
+    from repro_torch.core import csr, distributed as dist, updates
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.slot_update import ops as su_ops
+    from repro_torch.kernels.slot_walk import sharded as sw_sharded
+    from repro_torch.runtime import durable, faultinject
+
+    dev, rank = mesh.device, mesh.rank
+    with open(os.path.join(root, "meta.json")) as f:
+        meta = json.load(f)
+    n, m = meta["n"], meta["m"]
+    phase = dict.fromkeys(KERNELS, 0)
+    t, ex = {}, sw_sharded.EXCHANGE
+
+    def on_card(name):
+        return torch.from_numpy(np.load(os.path.join(root, name + ".npy"))).to(dev)
+
+    def plan_of(name):
+        z = np.load(os.path.join(root, name + ".npz"))
+        return updates.plan_from_canonical(z["q_src"], z["q_dst"], z["q_wgt"], z["q_del"])
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"mesh/rank {rank}: {what}")
+
+    def same_csr(got, prefix, what):
+        for f in ("offsets", "dst", "wgt"):
+            x = getattr(got, f)
+            check(same_bits(x if f == "offsets" else x[: got.m], on_card(prefix + f)),
+                  f"{what}: gather_csr {f} differs")
+
+    def timed(call):
+        """``call()`` inside ``counted``, every rank starting together; ->
+        (its result, host ms)."""
+        mesh.barrier()
+        t0 = sync_now()
+        with counted(KERNELS, phase):
+            out = call()
+        return out, sync_s(t0) * 1e3
+
+    def walk_launches(call, want, what):
+        before = phase["tile_cumsum"]
+        with counted(KERNELS, phase):
+            out = call()
+        check(phase["tile_cumsum"] - before == want,
+              f"{what}: tile_cumsum launched {phase['tile_cumsum'] - before} times, not {want}")
+        return out
+
+    c = csr.CSR(offsets=on_card("offsets"), dst=on_card("dst"), wgt=on_card("wgt"), n=n, m=m)
+    # 1. build (this rank's shard only) and the CSR back on every rank
+    sg, t["mesh_build_ms"] = timed(lambda: dist.shard_csr(c, SHARDS, mesh=mesh))
+    check([s for s, img in enumerate(sg.shards) if img is not None] == [rank],
+          "holds another rank's shard")
+    rows_max = sg.rows_max
+    same_csr(dist.gather_csr(sg), "", "build")
+    shard_bytes = sum(x.numel() * x.element_size()
+                      for x in (sg.shards[rank].dst, sg.shards[rank].wgt, sg.shards[rank].rows))
+
+    # 2. walks, against the local mode's, bit for bit
+    sg.reverse_walk(1)  # warm-up
+    ex0 = dict(ex)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    mesh.barrier()
+    t0 = sync_now()
+    start.record()
+    v = walk_launches(lambda: sg.reverse_walk(WALK_STEPS), WALK_STEPS, "walk/42")
+    end.record()
+    t["mesh_walk_ms"] = sync_s(t0) * 1e3
+    t["mesh_step_event_ms"] = start.elapsed_time(end) / WALK_STEPS
+    t["mesh_exchange_host_ms"] = (ex["host_s"] - ex0["host_s"]) / WALK_STEPS * 1e3
+    check(ex["steps"] - ex0["steps"] == WALK_STEPS, "walk/42: exchanges")
+    check(same_bits(v, on_card("walk42")), "the 42-step walk differs from the local mode's")
+    del v
+    v0 = on_card("v0")
+    ex0 = dict(ex)
+    b16 = walk_launches(lambda: sg.reverse_walk(4, visits0=v0), 4, "walk/B=16")
+    bytes16 = (ex["bytes"] - ex0["bytes"]) // 4
+    check(same_bits(b16, on_card("walk_b16")), "the B = 16 walk differs from the local mode's")
+    del b16
+    t["mesh_walk_b16_ms"] = time_ms(lambda: sg.reverse_walk(4, visits0=v0), reps=5)
+    bytes1 = sg.collective_bytes_per_step(1)
+    check(bytes1 == (SHARDS - 1) * rows_max * 4 and bytes16 == 16 * bytes1,
+          f"exchange bytes a step {bytes1} (B = 1), {bytes16} (B = 16)")
+
+    # 3. the update phase's plans, routed: a patch on this rank if routed here
+    patched = {}
+    for name in meta["plans"]:
+        plan = plan_of("plan_" + name)
+        here = rank in {s for s, _ in dist.route_updates(plan, SHARDS, rows_max)}
+        with count_calls(su_ops, ("fused_apply",)) as fa:
+            _, t[f"mesh_{name}_ms"] = timed(lambda: sg.apply(plan))
+        check(fa["fused_apply"] == int(here) and sg.generation == 0,
+              f"{name}: {fa['fused_apply']} patches (routed here: {here}), "
+              f"generation {sg.generation}")
+        patched[name] = fa["fused_apply"]
+    same_csr(dist.gather_csr(sg), "ref_", "after the plans")
+    v = walk_launches(lambda: sg.reverse_walk(4), 4, "walk after the plans")
+    check(same_bits(v, on_card("walk4")), "the walk after the plans differs")
+
+    # 4. durable; a shard.walk fault on rank 2 alone, raised on every rank;
+    # the degraded walk; rank 2's shard rebuilt
+    wal, ck = os.path.join(root, "wal"), os.path.join(root, "ckpt")
+    dg, t["mesh_ckpt_ms"] = timed(lambda: durable.DurableGraph(sg, wal, ck))
+    if rank == 2:
+        faultinject.arm("shard.walk", times=1)
+    raised = None
+    try:
+        sg.reverse_walk(4)
+    except dist.ShardFaultError as e:
+        raised = e.sid
+    finally:
+        faultinject.disarm()
+    check(raised == 2, f"shard.walk on rank 2 raised ShardFaultError({raised}) here")
+    sg.quarantine(2)
+    check(sg.coverage == meta["coverage"], f"coverage {sg.coverage}")
+    vd = walk_launches(lambda: sg.reverse_walk(4), 0 if rank == 2 else 4, "degraded walk")
+    lo, hi = sg.owned_range(2)
+    check(not bool(vd[lo:hi].any()), "a down row reads non-zero")
+    check(same_bits(vd, on_card("degraded4")), "the degraded walk differs from the local mode's")
+    del vd
+    records, t["mesh_rebuild_ms"] = timed(lambda: dg.rebuild_shard(2))
+    check(not sg.down and sg.coverage == 1.0, f"still down: {sg.down}")
+    v = walk_launches(lambda: sg.reverse_walk(4), 4, "rebuilt walk")
+    check(same_bits(v, on_card("walk4")), "the walk after rebuild_shard differs")
+
+    # 5. a crash at durable.post_append (armed on every rank: the job dies)
+    # and recover(mesh=), against an uncrashed twin on the mesh
+    twin = dist.ShardedGraph(shards=[None if i is None else twin_image(i) for i in sg.shards],
+                             n=sg.n, rows_max=rows_max, n_shards=SHARDS, mesh=mesh,
+                             dense=sg.dense)
+    dplans = [plan_of(f"dplan_{i}") for i in range(3)]
+    with counted(KERNELS, phase):
+        dg.apply(dplans[0])
+        dg.apply(dplans[1])
+    crash_at(faultinject, "durable.post_append", lambda: dg.apply(dplans[2]))
+    dg.close()
+    for p in dplans:
+        twin.apply(p)
+    del dg, sg
+    torch.cuda.empty_cache()
+    st = {}
+    r, t["mesh_recover_ms"] = timed(lambda: durable.DurableGraph.recover(wal, ck, mesh=mesh,
+                                                                          stats=st))
+    check(st["records"] == 3 and r.seq == 3 and r.rep_name == "sharded",
+          f"replayed {st['records']} records to seq {r.seq}")
+    ta, tb = r.rep.state_trees()[rank], twin.state_trees()[rank]
+    for key in tb:
+        check(same_bits(ta[key], tb[key]), f"recovered state_trees[{key!r}] differs from the twin")
+    del ta, tb, twin
+    t["mesh_restore_ms"], t["mesh_replay_ms"] = st["restore_s"] * 1e3, st["replay_s"] * 1e3
+
+    # 6. vertex growth: every rank re-shards from the gathered edges
+    _, t["mesh_grow_ms"] = timed(lambda: r.apply(plan_of("grow")))
+    check(r.rep.n == n + 7 and r.rep.generation == 1, f"grown to n={r.rep.n}")
+    v = walk_launches(lambda: r.reverse_walk(4), 4, "walk after growth")
+    check(same_bits(v, on_card("grow4")), "the walk after growth differs")
+    r.close()
+    return {"rank": rank, "backend": mesh.backend, "device": str(dev), "launches": phase,
+            "times": t, "rows_max": rows_max, "bytes1": bytes1, "bytes16": bytes16,
+            "patched": patched, "records_rebuilt": records, "shard_bytes": shard_bytes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mesh_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> None:
+    """The mesh phase (see the module docstring).  ``c`` is the social CSR on
+    the card, ``g`` the update phase's DiGraph (after ``plans``).  The local
+    mode runs here first and writes what the ranks hold themselves against
+    (the CSR's host arrays, its walks, the plans) under
+    ``build/chip_smoke_mesh_<pid>/``, with the ranks' journal and
+    checkpoints; removed on the way out whether the checks pass or not."""
+    from repro_torch.core import distributed as dist, edgebatch, updates, util
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as launch_serve
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"chip_smoke_mesh_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    p0 = time.perf_counter()
+    n = int(c.n)
+
+    def save(name, x):
+        np.save(os.path.join(root, name + ".npy"), util.host(x))
+
+    def save_plan(name, plan):
+        np.savez(os.path.join(root, name + ".npz"), q_src=plan.q_src, q_dst=plan.q_dst,
+                 q_wgt=plan.q_wgt, q_del=plan.q_del)
+
+    try:
+        # the local mode: the same steps on 4 shards of the one card
+        for f in ("offsets", "dst", "wgt"):
+            save(f, getattr(c, f)[: c.m if f != "offsets" else None])
+        wrng = np.random.default_rng(SERVE_VERIFY_SEED)
+        v0 = torch.stack([launch_serve.seed_visits_row(n, wrng.integers(0, n, SERVE_SEEDS),
+                                                       device=dev)
+                          for _ in range(SERVE_BATCH)])
+        save("v0", v0)
+        sg = dist.shard_csr(c, SHARDS, device=dev)
+        save("walk42", sg.reverse_walk(WALK_STEPS))
+        save("walk_b16", sg.reverse_walk(4, visits0=v0))
+        for name, plan in plans:
+            sg.apply(plan)
+            save_plan("plan_" + name, plan)
+        ref = g.to_csr()
+        for f in ("offsets", "dst", "wgt"):
+            save("ref_" + f, getattr(ref, f)[: ref.m if f != "offsets" else None])
+        save("walk4", sg.reverse_walk(4))
+        sg.quarantine(2)
+        coverage = sg.coverage
+        save("degraded4", sg.reverse_walk(4))
+        sg.reintegrate(2, twin_image(sg.shards[2]))
+        rng = np.random.default_rng(SEED + 3)
+        k = max(round(SHARD_PLAN_FRAC * ref.m), 1)
+        for i in range(3):
+            plan = updates.plan_update(inserts=edgebatch.random_insertions(rng, n, k),
+                                       deletes=edgebatch.random_deletions(rng, ref, k))
+            sg.apply(plan)
+            save_plan(f"dplan_{i}", plan)
+        grow = updates.plan_update(inserts=edgebatch.from_arrays(
+            np.array([n + 6, 2]), np.array([1, n + 6]), np.ones(2, np.float32)))
+        sg.apply(grow)
+        save_plan("grow", grow)
+        save("grow4", sg.reverse_walk(4))
+        with open(os.path.join(root, "meta.json"), "w") as f:
+            json.dump({"n": n, "m": int(c.m), "plans": [name for name, _ in plans],
+                       "coverage": coverage}, f)
+        del sg, ref, v0
+        torch.cuda.empty_cache()
+        local_s = time.perf_counter() - p0
+
+        # the ranks: one shard each, 4 processes on this card
+        device = f"cuda:{torch.cuda.current_device()}"
+        t0 = time.perf_counter()
+        ranks = mesh_mod.run_ranks(mesh_rank, MESH_RANKS, args=(root,), device=device,
+                                   init_dir=root, timeout=MESH_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        if sorted(r_["rank"] for r_ in ranks) != list(range(MESH_RANKS)):
+            raise AssertionError(f"mesh: ranks {[r_['rank'] for r_ in ranks]} returned")
+        for r_ in ranks:
+            for k_, v_ in r_["launches"].items():
+                launches[k_] += v_
+        for k_ in ("tile_cumsum", "merge_rows_fused", "degree_offsets"):
+            if sum(r_["launches"][k_] for r_ in ranks) == 0:
+                raise AssertionError(f"mesh: {k_} never launched in the ranks")
+        for k_ in ranks[0]["times"]:
+            times[k_] = max(r_["times"][k_] for r_ in ranks)
+        say("mesh", card=card, ranks=MESH_RANKS, device=device, backend=ranks[0]["backend"],
+            transport="4 ranks share one card: not a multi-card figure", n=n, m=c.m,
+            rows_max=ranks[0]["rows_max"],
+            shard_bytes="/".join(str(r_["shard_bytes"]) for r_ in ranks),
+            exchange_bytes_b1=ranks[0]["bytes1"], exchange_bytes_b16=ranks[0]["bytes16"],
+            records_rebuilt=ranks[2]["records_rebuilt"], coverage_degraded=f"{coverage:.6f}",
+            checks="42-step, B=16, degraded, rebuilt and grown walks and gather_csr bit for "
+                   "bit vs local mode on every rank; recovered state_trees vs twin")
+        for r_ in ranks:
+            say("mesh", rank=r_["rank"], **{k_: f"{v_:.4f}" for k_, v_ in r_["times"].items()},
+                patched="/".join(f"{k_}={v_}" for k_, v_ in r_["patched"].items()),
+                launches="/".join(f"{k_}={v_}" for k_, v_ in r_["launches"].items() if v_),
+                peak_gb=f"{r_['peak_gb']:.2f}")
+        say("mesh", card=card, local_mode_s=f"{local_s:.1f}", ranks_s=f"{ranks_s:.1f}",
+            disk_peak_bytes=dir_bytes(root), phase_s=f"{time.perf_counter() - p0:.1f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def gnn_runs_a_step(model: str, cfg) -> int:
@@ -2540,6 +2834,11 @@ def main() -> None:
     p0 = time.perf_counter()
     sharded_phase(c, g, plans, launches, times, dev, smi)
     phase_s["sharded_s"] = time.perf_counter() - p0
+
+    # 7f. mesh (the sharded graph on 4 ranks sharing the card, over gloo) --
+    p0 = time.perf_counter()
+    mesh_phase(c, g, plans, launches, times, dev, smi)
+    phase_s["mesh_s"] = time.perf_counter() - p0
 
     # 8. walk_bsr (paper task 4 as iterated block-sparse SpMM) ------------
     p0 = t0 = sync_now()

@@ -8,7 +8,9 @@ complete checkpoint; rotation bounds disk.  Arrays are stored as one
 digests, so a restore can validate structure before touching device
 memory.  Sharded owners write one ``shard_{id}.npz`` per device under ONE
 shared step manifest via :func:`save_arrays_sharded` — the atomic rename
-commits all shards or none.
+commits all shards or none.  On a mesh of ranks (one process a shard)
+:func:`save_arrays_mesh` writes the same layout: each rank its own shard
+file, rank 0 the manifest and the rename.
 
 **Differential checkpoints (DESIGN.md §15).**  Full manifests carry a
 per-key list of ``CHUNK_BYTES``-granular CRC32 digests.
@@ -178,34 +180,8 @@ def save_arrays_sharded(
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
     try:
-        manifest = {
-            "step": step,
-            "kind": "full",
-            "n_shards": len(shards),
-            "shards": {},
-        }
-        for sid in sorted(shards):
-            arrays = {k: _host_array(k, v) for k, v in shards[sid].items()}
-            np.savez(os.path.join(tmp, f"shard_{sid}.npz"), **arrays)
-            manifest["shards"][str(sid)] = {
-                "keys": sorted(arrays.keys()),
-                "shapes": {k: list(v.shape) for k, v in arrays.items()},
-                "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
-                # per-key chunk digests: the anchor future diff steps
-                # hash/patch against (§15)
-                "chunks": {k: _chunk_crcs(_byte_view(v)) for k, v in arrays.items()},
-            }
-        if len(shards) == 1:
-            # legacy flat fields: single-shard manifests stay readable by
-            # pre-§14 restores (and restore() below)
-            (only,) = manifest["shards"].values()
-            manifest.update(only)
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        faultinject.fire("checkpoint.pre_rename")
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)  # atomicity: rename is the commit point
+        blocks = {sid: _write_full_shard(tmp, sid, shards[sid]) for sid in sorted(shards)}
+        _commit(ckpt_dir, tmp, final, _manifest(step, "full", blocks))
     except faultinject.SimulatedCrash:
         raise  # crashed writers don't clean up after themselves
     except BaseException:
@@ -213,6 +189,105 @@ def save_arrays_sharded(
         raise
     _rotate(ckpt_dir, keep)
     return final
+
+
+def save_arrays_mesh(
+    ckpt_dir: str,
+    step: int,
+    mesh,
+    arrays: dict,
+    *,
+    keep: int = 3,
+    diff: bool = False,
+    base_step: Optional[int] = None,
+    dirty=None,
+) -> str:
+    """This rank's part of a sharded step that every rank of ``mesh`` writes.
+
+    The step has :func:`save_arrays_sharded`'s layout (``diff=True``:
+    :func:`save_arrays_diff`'s, ``dirty`` being this rank's hint): rank 0
+    makes the step's tmp dir, each rank writes its own ``shard_{rank}.npz``
+    of ``arrays`` into it, and once every shard is written rank 0 writes the
+    manifest, renames the dir into place and rotates.  Every rank calls it
+    and returns the step's path, or raises the same error.
+    """
+    from ..runtime import faultinject  # lazy: checkpoint stays import-light
+
+    final = _step_dir(ckpt_dir, step)
+
+    def prepare():
+        base = base_step
+        if diff and base is None:
+            base = latest_step(ckpt_dir)
+            if base is None:
+                raise FileNotFoundError(f"save_arrays_diff: no base checkpoint under {ckpt_dir}")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        return tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir), base
+
+    tmp, base = mesh.settle(prepare, on=0)[0]
+
+    def write():
+        if diff:
+            base_man = _read_manifest(_step_dir(ckpt_dir, base))
+            return _write_diff_shard(tmp, mesh.rank, arrays, base_man, dirty)
+        return _write_full_shard(tmp, mesh.rank, arrays)
+
+    def commit():
+        _commit(ckpt_dir, tmp, final,
+                _manifest(step, "diff" if diff else "full", dict(enumerate(blocks)), base))
+        _rotate(ckpt_dir, keep)
+
+    try:
+        blocks = mesh.settle(write)
+        mesh.settle(commit, on=0)
+    except faultinject.SimulatedCrash:
+        raise  # crashed writers don't clean up after themselves
+    except BaseException:
+        if mesh.rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def _write_full_shard(tmp: str, sid: int, arrays: dict) -> dict:
+    """Write one shard's ``shard_{sid}.npz`` into ``tmp``; its manifest block."""
+    arrays = {k: _host_array(k, v) for k, v in arrays.items()}
+    np.savez(os.path.join(tmp, f"shard_{sid}.npz"), **arrays)
+    return {
+        "keys": sorted(arrays.keys()),
+        "shapes": {k: list(v.shape) for k, v in arrays.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
+        # per-key chunk digests: the anchor future diff steps hash/patch
+        # against (§15)
+        "chunks": {k: _chunk_crcs(_byte_view(v)) for k, v in arrays.items()},
+    }
+
+
+def _manifest(step: int, kind: str, blocks: dict, base_step: Optional[int] = None) -> dict:
+    """A step manifest over ``{shard_id: block}``."""
+    manifest = {"step": step, "kind": kind}
+    if kind == "diff":
+        manifest["base_step"] = int(base_step)
+    manifest["n_shards"] = len(blocks)
+    manifest["shards"] = {str(sid): blocks[sid] for sid in sorted(blocks)}
+    if kind == "full" and len(blocks) == 1:
+        # legacy flat fields: single-shard manifests stay readable by
+        # pre-§14 restores (and restore() below)
+        (only,) = manifest["shards"].values()
+        manifest.update(only)
+    return manifest
+
+
+def _commit(ckpt_dir: str, tmp: str, final: str, manifest: dict) -> None:
+    """Write the manifest into ``tmp`` and rename it into place."""
+    from ..runtime import faultinject
+
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    faultinject.fire("checkpoint.pre_rename")
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)  # atomicity: rename is the commit point
 
 
 def save_arrays_diff(
@@ -262,81 +337,11 @@ def save_arrays_diff(
     final = _step_dir(ckpt_dir, step)
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=ckpt_dir)
     try:
-        manifest = {
-            "step": step,
-            "kind": "diff",
-            "base_step": int(base_step),
-            "n_shards": len(shards),
-            "shards": {},
+        blocks = {
+            sid: _write_diff_shard(tmp, sid, shards[sid], base_man, (dirty or {}).get(sid))
+            for sid in sorted(shards)
         }
-        for sid in sorted(shards):
-            arrays = {k: _host_array(k, v) for k, v in shards[sid].items()}
-            try:
-                base_blk = _shard_manifest(base_man, int(sid), "")
-            except FileNotFoundError:
-                base_blk = None  # shard count changed: persist fully
-            shard_hint = (dirty or {}).get(sid)
-            entries, chunks_out, diff_bytes = {}, {}, 0
-            for k in sorted(arrays):
-                arr = arrays[k]
-                u8 = _byte_view(arr)
-                base_ok = (
-                    base_blk is not None
-                    and k in base_blk.get("chunks", {})
-                    and base_blk["shapes"].get(k) == list(arr.shape)
-                    and base_blk["dtypes"].get(k) == _dtype_name(arr)
-                )
-                if isinstance(shard_hint, dict):
-                    key_hint = shard_hint.get(k)
-                else:
-                    key_hint = shard_hint  # None / "clean" / "full"
-                if not base_ok or (isinstance(key_hint, str) and key_hint == "full"):
-                    entries[k] = arr
-                    chunks_out[k] = _chunk_crcs(u8)
-                    diff_bytes += u8.shape[0]
-                    continue
-                base_crcs = base_blk["chunks"][k]
-                if isinstance(key_hint, str) and key_hint == "clean":
-                    # shape/dtype matched above; carry the base digests
-                    chunks_out[k] = list(base_crcs)
-                    continue
-                if key_hint is None:  # hash-compare against the base
-                    crcs = _chunk_crcs(u8)
-                    ids = np.asarray(
-                        [i for i, (a, b) in enumerate(zip(crcs, base_crcs)) if a != b],
-                        dtype=np.int64,
-                    )
-                    chunks_out[k] = crcs
-                else:  # element ranges: persist exactly the covered chunks
-                    ids = _ranges_to_chunks(key_hint, max(arr.dtype.itemsize, 1), u8.shape[0])
-                    crcs = list(base_crcs)
-                    mv = memoryview(u8)
-                    for i in ids:
-                        i = int(i)
-                        crcs[i] = zlib.crc32(mv[i * CHUNK_BYTES : (i + 1) * CHUNK_BYTES])
-                    chunks_out[k] = crcs
-                if ids.size:
-                    dat = np.concatenate(
-                        [u8[int(i) * CHUNK_BYTES : (int(i) + 1) * CHUNK_BYTES] for i in ids]
-                    )
-                    entries[f"{k}::idx"] = ids
-                    entries[f"{k}::dat"] = dat
-                    diff_bytes += dat.shape[0]
-            manifest["shards"][str(sid)] = {
-                "keys": sorted(arrays.keys()),
-                "shapes": {k: list(v.shape) for k, v in arrays.items()},
-                "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
-                "chunks": chunks_out,
-                "diff_bytes": int(diff_bytes),
-            }
-            if entries:
-                np.savez(os.path.join(tmp, f"shard_{sid}.npz"), **entries)
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        faultinject.fire("checkpoint.pre_rename")
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)  # atomicity: rename is the commit point
+        _commit(ckpt_dir, tmp, final, _manifest(step, "diff", blocks, base_step))
     except faultinject.SimulatedCrash:
         raise  # crashed writers don't clean up after themselves
     except BaseException:
@@ -344,6 +349,70 @@ def save_arrays_diff(
         raise
     _rotate(ckpt_dir, keep)
     return final
+
+
+def _write_diff_shard(tmp: str, sid: int, arrays: dict, base_man: dict, shard_hint) -> dict:
+    """Write one shard's changed chunks into ``tmp``; its diff manifest block."""
+    arrays = {k: _host_array(k, v) for k, v in arrays.items()}
+    try:
+        base_blk = _shard_manifest(base_man, int(sid), "")
+    except FileNotFoundError:
+        base_blk = None  # shard count changed: persist fully
+    entries, chunks_out, diff_bytes = {}, {}, 0
+    for k in sorted(arrays):
+        arr = arrays[k]
+        u8 = _byte_view(arr)
+        base_ok = (
+            base_blk is not None
+            and k in base_blk.get("chunks", {})
+            and base_blk["shapes"].get(k) == list(arr.shape)
+            and base_blk["dtypes"].get(k) == _dtype_name(arr)
+        )
+        if isinstance(shard_hint, dict):
+            key_hint = shard_hint.get(k)
+        else:
+            key_hint = shard_hint  # None / "clean" / "full"
+        if not base_ok or (isinstance(key_hint, str) and key_hint == "full"):
+            entries[k] = arr
+            chunks_out[k] = _chunk_crcs(u8)
+            diff_bytes += u8.shape[0]
+            continue
+        base_crcs = base_blk["chunks"][k]
+        if isinstance(key_hint, str) and key_hint == "clean":
+            # shape/dtype matched above; carry the base digests
+            chunks_out[k] = list(base_crcs)
+            continue
+        if key_hint is None:  # hash-compare against the base
+            crcs = _chunk_crcs(u8)
+            ids = np.asarray(
+                [i for i, (a, b) in enumerate(zip(crcs, base_crcs)) if a != b],
+                dtype=np.int64,
+            )
+            chunks_out[k] = crcs
+        else:  # element ranges: persist exactly the covered chunks
+            ids = _ranges_to_chunks(key_hint, max(arr.dtype.itemsize, 1), u8.shape[0])
+            crcs = list(base_crcs)
+            mv = memoryview(u8)
+            for i in ids:
+                i = int(i)
+                crcs[i] = zlib.crc32(mv[i * CHUNK_BYTES : (i + 1) * CHUNK_BYTES])
+            chunks_out[k] = crcs
+        if ids.size:
+            dat = np.concatenate(
+                [u8[int(i) * CHUNK_BYTES : (int(i) + 1) * CHUNK_BYTES] for i in ids]
+            )
+            entries[f"{k}::idx"] = ids
+            entries[f"{k}::dat"] = dat
+            diff_bytes += dat.shape[0]
+    if entries:
+        np.savez(os.path.join(tmp, f"shard_{sid}.npz"), **entries)
+    return {
+        "keys": sorted(arrays.keys()),
+        "shapes": {k: list(v.shape) for k, v in arrays.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in arrays.items()},
+        "chunks": chunks_out,
+        "diff_bytes": int(diff_bytes),
+    }
 
 
 def _shard_manifest(manifest: dict, shard_id: int, where: str) -> dict:
@@ -634,6 +703,16 @@ def all_steps(ckpt_dir: str) -> list[int]:
         ):
             out.append(int(name.split("_")[1]))
     return sorted(out)
+
+
+def step_shards(ckpt_dir: str, step: Optional[int] = None) -> tuple[int, int]:
+    """``(step, n_shards)`` of ``step`` (the newest by default), read from its
+    manifest alone."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    return int(step), int(_read_manifest(_step_dir(ckpt_dir, step))["n_shards"])
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

@@ -1,8 +1,8 @@
-"""Sharded walk images, local mode (DESIGN.md §14).
+"""Sharded walk images (DESIGN.md §14).
 
-The port of ``repro.core.distributed`` in its single-device mode
-(``mesh=None``).  ``ShardedGraph`` is a thin wrapper over per-shard
-``WalkImage``s: vertices block-partition into ``n_shards`` shards (shard s
+The port of ``repro.core.distributed``.  ``ShardedGraph`` is a thin wrapper
+over per-shard ``WalkImage``s: vertices block-partition into ``n_shards``
+shards (shard s
 owns the contiguous range ``[s·rows_max, (s+1)·rows_max)``, the analogue of
 the paper's Alg-5 per-thread partition), and each shard's edges live in its
 OWN standard walk image — same packed tiles, same CP2AA/dense layout
@@ -40,10 +40,30 @@ by the opt-in integrity tracker (``enable_integrity``): per-buffer chunk
 CRCs refreshed with each fused patch and re-verified by ``verify_shard`` /
 ``audit_shard`` between rounds.
 
-Every shard lives on the one device the graph was built on.  The
-multi-device mesh (``repro``'s ``mesh=``, one shard a device with a
-frontier all_gather) is ``ROADMAP.md`` §1 item 3: any ``mesh`` other than
-None raises ``NotImplementedError``.
+**Two modes.**  With ``mesh=None`` (local mode) every shard lives on the
+one device the graph was built on and one process drives them all.  With a
+``launch.mesh.Mesh`` (mesh mode) there is one process a rank and one shard
+a rank, as ``repro``'s ``shard_map`` puts one shard a device; but where
+``repro`` is one controller over every device, the port is one program per
+rank (multi-controller):
+
+  * every rank calls every method with the same arguments in the same
+    order; each holds only its own shard's image, on ``mesh.device``
+    (``shards[s]`` is None for the others), and computes the host geometry
+    (``rows_max``, ``cap_e``, the dense policy, ``route_updates``)
+    identically from the same CSR and plans;
+  * a decision one rank takes from its own shard (an overflow, a
+    ``shard.patch`` or ``shard.walk`` fault, an audit failure) is agreed
+    before any rank acts on it — one ``all_reduce`` MAX of a per-shard flag
+    vector, or ``Mesh.settle`` — so every rank quarantines the same shards,
+    re-shards together or raises the same :class:`ShardFaultError`;
+  * the walk's frontier exchange is ``make_sharded_walk``'s all_gather;
+    ``gather_csr`` and the re-shard gather every shard's edges to every
+    rank; checkpoints write one ``shard_{s}.npz`` a rank under the same
+    step manifest local mode writes.
+
+Model sharding (DTensor over a ``DeviceMesh``) is not this module's: it is
+``ROADMAP.md`` §1 item 6.
 """
 from __future__ import annotations
 
@@ -78,6 +98,10 @@ class ShardFaultError(RuntimeError):
         super().__init__(msg)
         self.sid = int(sid)
         self.stage = stage
+        self.detail = detail
+
+    def __reduce__(self):  # a mesh hands it to every rank
+        return type(self), (self.sid, self.stage, self.detail)
 
 
 class ShardIntegrityError(ShardFaultError):
@@ -90,13 +114,31 @@ class ShardDownError(RuntimeError):
     (vertex growth, global gather/rebuild, checkpointing)."""
 
 
-def _local_only(mesh, where: str) -> None:
-    """Refuse a device mesh: only the single-device local mode is ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{where}: mesh={mesh!r}: only the single-device local mode (mesh=None) "
-            "is ported; the multi-device walk is ROADMAP.md §1 item 3"
-        )
+def _check_mesh(mesh, n_shards: Optional[int], where: str) -> None:
+    """``mesh`` is None or a ``launch.mesh.Mesh`` of ``n_shards`` ranks."""
+    if mesh is None:
+        return
+    from ..launch.mesh import Mesh
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"{where}: mesh must be None or a repro_torch.launch.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+    if n_shards is not None and mesh.size != n_shards:
+        raise ValueError(f"{where}: mesh device count != n_shards "
+                         f"({mesh.size} ranks, {n_shards} shards)")
+
+
+def _placement(mesh, device) -> torch.device:
+    """The device a graph's shards live on: ``device`` (the card unless the
+    caller asks for the CPU) in local mode, ``mesh.device`` on a mesh."""
+    if mesh is None:
+        return util.resolve_device("cuda" if device is None else device)
+    if device is not None:
+        want = torch.device(device)
+        if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
+            raise ValueError(f"device {str(device)!r} is not this rank's mesh device "
+                             f"{mesh.device}")
+    return mesh.device
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -152,11 +194,11 @@ class ShardedGraph:
     its owned rows' blocks; rows outside the owned range have no block.
     """
 
-    shards: list          # [S] WalkImage, nv == v_pad each
+    shards: list          # [S] WalkImage, nv == v_pad each (None: held by another rank)
     n: int                # true global vertex count (<= v_pad)
     rows_max: int         # vertices per shard block
     n_shards: int
-    mesh: Optional[object] = None   # None = single-device local mode (the only one)
+    mesh: Optional[object] = None   # launch.mesh.Mesh; None = single-device local mode
     dense: bool = False             # global layout policy (shared by shards)
     #: bumped by every ``_rebuild`` — lets observers (the §15 dirty-block
     #: tracker) distinguish in-place per-shard patches from a global
@@ -176,7 +218,16 @@ class ShardedGraph:
     _placed: Optional[tuple] = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
-        _local_only(self.mesh, "ShardedGraph")
+        _check_mesh(self.mesh, self.n_shards, "ShardedGraph")
+
+    def holds(self, s: int) -> bool:
+        """Whether this process holds shard ``s``'s image (every shard in
+        local mode, its own on a mesh)."""
+        return self.mesh is None or int(s) == self.mesh.rank
+
+    def _held(self) -> list:
+        """The shard ids this process holds."""
+        return list(range(self.n_shards)) if self.mesh is None else [self.mesh.rank]
 
     # ------------------------------------------------------------------
     @property
@@ -190,8 +241,8 @@ class ShardedGraph:
 
     @property
     def device(self) -> torch.device:
-        """The device every shard's payload lives on."""
-        return self.shards[0].device
+        """The device this process's shards' payload lives on."""
+        return self.shards[0].device if self.mesh is None else self.mesh.device
 
     @property
     def coverage(self) -> float:
@@ -211,19 +262,22 @@ class ShardedGraph:
 
     @property
     def cap_e(self) -> int:
-        return self.shards[0].cap_e
+        return self.shards[self._held()[0]].cap_e
 
     @property
     def m(self) -> int:
-        return sum(int(img.live) for img in self.shards)
+        """Live edges over every shard (on a mesh, a collective)."""
+        m = sum(int(self.shards[s].live) for s in self._held())
+        return m if self.mesh is None else int(self.mesh.all_sum([m])[0])
 
     def owned_range(self, s: int) -> tuple[int, int]:
         return s * self.rows_max, min((s + 1) * self.rows_max, self.n)
 
     def edges_hi(self) -> int:
         """Largest per-shard quantized bump (shards share cap_e, so every
-        shard's bound is on the same lattice)."""
-        return max(img.edges_hi() for img in self.shards)
+        shard's bound is on the same lattice; on a mesh, a collective)."""
+        e = max(self.shards[s].edges_hi() for s in self._held())
+        return e if self.mesh is None else int(self.mesh.all_max([e])[0])
 
     def _lohi(self, s: int, img):
         """Device [lo, hi) intervals of shard ``s``'s owned rows (all
@@ -259,13 +313,18 @@ class ShardedGraph:
         — apply() itself stays non-raising for patch faults.  Vertex
         growth (a global re-shard) while degraded raises
         :class:`ShardDownError`.  The graph mutates in place; returns None.
+
+        On a mesh each rank patches its own shard; the faulted and the
+        overflowing shards are agreed (one ``all_reduce`` MAX) before any
+        rank quarantines or re-shards, and a quarantined shard's subplans
+        spool on its own rank.
         """
         if self._frozen:
             raise RuntimeError("sealed walk generation is read-only")
         plan.validate()
         if plan.n_ops == 0:
             return
-        if plan.max_insert_vertex() >= self.n:
+        if plan.max_insert_vertex() >= self.n:  # the same plan: the same branch on every rank
             if self.down:
                 raise ShardDownError(
                     f"vertex growth needs a global re-shard but shards "
@@ -273,8 +332,10 @@ class ShardedGraph:
                 )
             self._rebuild(extra=(plan,))
             return
-        failed = []
+        faulted, failed = {}, []
         for sid, sub in route_updates(plan, self.n_shards, self.rows_max):
+            if not self.holds(sid):
+                continue
             if sid in self.down:
                 self._spool.setdefault(sid, []).append(sub)
                 continue
@@ -284,14 +345,9 @@ class ShardedGraph:
                 img.queue(sub)
                 ok = img.flush()
             except Exception:
-                # device fault mid-patch: quarantine THIS shard, make sure
-                # its sub spools exactly once (flush leaves a failed sub
-                # queued; quarantine drains the queue), and keep patching
-                # the rest of the shards.
-                self.quarantine(sid)
-                spool = self._spool[sid]
-                if not spool or spool[-1] is not sub:
-                    spool.append(sub)
+                # device fault mid-patch: THIS shard is quarantined below
+                # and its sub spools exactly once; the rest keep patching
+                faulted[sid] = sub
                 continue
             if not ok:
                 failed.append(sid)  # sub / compaction request pends on img
@@ -299,6 +355,20 @@ class ShardedGraph:
             if self._integrity is not None:
                 self._integrity[sid] = _shard_crc_table(img)
             self._corrupt_tick(sid)
+        if self.mesh is not None:
+            flags = np.zeros(2 * self.n_shards, np.int64)
+            flags[list(faulted)] = 1
+            flags[[self.n_shards + s for s in failed]] = 1
+            flags = self.mesh.all_max(flags)
+            faulted = {s: faulted.get(s) for s in np.flatnonzero(flags[: self.n_shards]).tolist()}
+            failed = np.flatnonzero(flags[self.n_shards:]).tolist()
+        for sid, sub in sorted(faulted.items()):
+            # quarantine drains the queue (flush leaves a failed sub queued)
+            self.quarantine(sid)
+            if self.holds(sid):
+                spool = self._spool[sid]
+                if not spool or spool[-1] is not sub:
+                    spool.append(sub)
         self._placed = None
         if failed:
             if self.down:
@@ -311,23 +381,41 @@ class ShardedGraph:
                 self._rebuild()
 
     def _rebuild(self, extra=()) -> None:
-        """Gather + host-apply unapplied plans + re-shard ONCE."""
+        """Gather + host-apply unapplied plans + re-shard ONCE.
+
+        On a mesh each rank first applies its own shard's pending subplans
+        to its own edges (they touch only its rows, so the order across
+        shards does not matter), then every shard's edges gather to every
+        rank, the ``extra`` plans apply, and every rank re-shards from the
+        same CSR.
+        """
         if self.down:
             raise ShardDownError(
                 f"global re-shard with shards {sorted(self.down)} "
                 f"quarantined — rebuild them first"
             )
-        src, dst, wgt = (util.host(x) for x in _gather_coo(self))
-        plans = [p for img in self.shards for p in img._pending]
-        plans.extend(extra)
+        pending = [p for s in self._held() for p in self.shards[s]._pending]
         n_new = self.n
-        for p in plans:
+        for p in (*pending, *extra):
             n_new = max(n_new, p.max_insert_vertex() + 1)
+        if self.mesh is None:
+            src, dst, wgt = (util.host(x) for x in _gather_coo(self))
+            plans = [*pending, *extra]
+        else:
+            n_new = int(self.mesh.all_max([n_new])[0])
+            own = self.mesh.rank
+            coo = _settled(self.mesh, lambda: _image_coo(
+                self.shards[own], *self.owned_range(own), self.n, self.v_pad, own))
+            src, dst, wgt = (util.host(x) for x in coo)
+            for p in pending:
+                src, dst, wgt = _host_apply(src, dst, wgt, p)
+            src, dst, wgt = (util.host(x) for x in _all_gather_coo(self.mesh, src, dst, wgt))
+            plans = list(extra)
         for p in plans:
             src, dst, wgt = _host_apply(src, dst, wgt, p)
         dev = self.device
         c = csr_mod.from_coo(src, dst, wgt, n=n_new, dedup=False, device=dev)
-        g = shard_csr(c, self.n_shards, dense=None, device=dev)
+        g = shard_csr(c, self.n_shards, mesh=self.mesh, dense=None, device=dev)
         self.shards = g.shards
         self.n = g.n
         self.rows_max = g.rows_max
@@ -346,7 +434,8 @@ class ShardedGraph:
         Idempotent.  The shard's image stays in ``shards`` (walks skip it,
         so its rows read zero), its integrity entry drops (the content is
         no longer trusted), and every later routed update for it spools
-        until :meth:`reintegrate`.
+        until :meth:`reintegrate`.  On a mesh every rank marks it down
+        and its own rank drains and spools.
         """
         sid = int(sid)
         if not (0 <= sid < self.n_shards):
@@ -354,6 +443,9 @@ class ShardedGraph:
         if sid in self.down:
             return
         self.down.add(sid)
+        self._placed = None
+        if not self.holds(sid):
+            return
         img = self.shards[sid]
         spool = self._spool.setdefault(sid, [])
         spool.extend(img._pending)
@@ -361,7 +453,6 @@ class ShardedGraph:
         img._stale = False
         if self._integrity is not None:
             self._integrity.pop(sid, None)
-        self._placed = None
 
     def reintegrate(self, sid: int, img) -> None:
         """Atomically swap a rebuilt image in for a quarantined shard.
@@ -371,10 +462,24 @@ class ShardedGraph:
         the shard stays down — a reader can never observe a
         half-reintegrated shard, because readers only see the swap via the
         NEXT sealed generation.
+
+        On a mesh every rank calls it (``img`` is read on ``sid``'s own rank
+        only) and the owner's outcome is agreed: every rank raises, or
+        every rank takes the shard back.
         """
         sid = int(sid)
         if sid not in self.down:
             raise ValueError(f"reintegrate: shard {sid} is not quarantined")
+        if self.mesh is None:
+            self._swap_in(sid, img)
+        else:
+            self.mesh.settle(lambda: self._swap_in(sid, img), on=sid)
+            self.down.discard(sid)
+            self._placed = None
+
+    def _swap_in(self, sid: int, img) -> None:
+        """Validate, swap in and audit one rebuilt image (this process
+        holds ``sid``)."""
         if img.cap_e != self.cap_e or int(img.nv) != self.v_pad:
             raise ValueError(
                 f"reintegrate: shard {sid} image layout (cap_e={img.cap_e}, "
@@ -390,7 +495,7 @@ class ShardedGraph:
         self.shards[sid] = img
         self.down.discard(sid)
         try:
-            self.audit_shard(sid, verify=False)
+            self._audit_held(sid, verify=False)
         except Exception:
             self.shards[sid] = old
             self.down.add(sid)
@@ -414,26 +519,36 @@ class ShardedGraph:
         to the host.
         """
         self._integrity = {
-            s: _shard_crc_table(img)
-            for s, img in enumerate(self.shards)
+            s: _shard_crc_table(self.shards[s])
+            for s in self._held()
             if s not in self.down
         }
+
+    def _on_owner(self, sid: int, fn):
+        """``fn()`` where shard ``sid`` is held; on a mesh a collective that
+        hands the owner's result (or its exception) to every rank."""
+        if self.mesh is None:
+            return fn()
+        return self.mesh.settle(fn, on=int(sid))[int(sid)]
 
     def shard_descriptor(self, sid: int) -> dict:
         """Current integrity descriptor of one shard (seal/checkpoint
         callers persist this next to the payload)."""
-        return _shard_crc_table(self.shards[int(sid)])
+        return self._on_owner(sid, lambda: _shard_crc_table(self.shards[int(sid)]))
 
     def verify_shard(self, sid: int) -> None:
         """Recompute one shard's descriptor against the maintained table.
 
         Raises :class:`ShardIntegrityError` naming the damaged buffers and
         chunk indices.  No-op when integrity tracking is off; a shard with
-        no entry yet (fresh reintegration) is seeded.
+        no entry yet (fresh reintegration) is seeded.  On a mesh the owner
+        verifies and every rank gets its outcome.
         """
+        self._on_owner(sid, lambda: self._verify_held(int(sid)))
+
+    def _verify_held(self, sid: int) -> None:
         if self._integrity is None:
             return
-        sid = int(sid)
         img = self.shards[sid]
         want = self._integrity.get(sid)
         if want is None:
@@ -456,10 +571,14 @@ class ShardedGraph:
         raise ShardIntegrityError(sid, "integrity", "; ".join(bad) or "descriptor mismatch")
 
     def audit_shard(self, sid: int, *, verify: bool = True) -> dict:
-        """One shard's structural audit + stray-row pass + CRC verify."""
+        """One shard's structural audit + stray-row pass + CRC verify (on a
+        mesh the owner audits and every rank gets its outcome)."""
         sid = int(sid)
         if sid in self.down:
             raise ShardDownError(f"audit_shard: shard {sid} is quarantined")
+        return self._on_owner(sid, lambda: self._audit_held(sid, verify=verify))
+
+    def _audit_held(self, sid: int, *, verify: bool = True) -> dict:
         img = self.shards[sid]
         report = img.audit()
         lo_v, hi_v = self.owned_range(sid)
@@ -472,7 +591,7 @@ class ShardedGraph:
                 f"edges on non-owned rows {np.nonzero(stray)[0][:8].tolist()}",
             )
         if verify:
-            self.verify_shard(sid)
+            self._verify_held(sid)
         return report
 
     def _corrupt_tick(self, sid: int) -> None:
@@ -497,7 +616,7 @@ class ShardedGraph:
         covers.
         """
         sealed = [
-            img if s in self.down else img.seal(generation)
+            img if s in self.down or img is None else img.seal(generation)
             for s, img in enumerate(self.shards)
         ]
         return ShardedGraph(
@@ -525,7 +644,7 @@ class ShardedGraph:
             return self._placed
         dsts, los, his = [], [], []
         for s, img in enumerate(self.shards):
-            if s in self.down:
+            if s in self.down or img is None:
                 dsts.append(None)
                 los.append(None)
                 his.append(None)
@@ -550,16 +669,35 @@ class ShardedGraph:
         a healthy shard that faults here raises :class:`ShardFaultError`
         carrying its ``sid`` so the serving layer can quarantine it and
         retry degraded instead of failing the batch.
+
+        On a mesh (every rank calls it with the same arguments) each rank
+        checks its own shard's ``shard.walk`` point and the faults are agreed
+        before the first exchange: every rank raises the lowest faulted
+        shard's :class:`ShardFaultError`.  Each rank steps its own shard and
+        all_gathers the frontier (``make_sharded_walk``); the result is on
+        every rank.
         """
         from ..kernels.slot_walk import sharded as _sw
 
-        for s in range(self.n_shards):
+        fault = None
+        for s in self._held():
             if s in self.down:
                 continue
             try:
                 _fi.fire("shard.walk")
             except Exception as e:
-                raise ShardFaultError(s, "walk", str(e)) from e
+                fault = ShardFaultError(s, "walk", str(e))
+                fault.__cause__ = e
+                break
+        if self.mesh is not None:
+            flags = np.zeros(self.n_shards, np.int64)
+            if fault is not None:
+                flags[fault.sid] = 1
+            bad = np.flatnonzero(self.mesh.all_max(flags))
+            if bad.size and (fault is None or fault.sid != int(bad[0])):
+                fault = ShardFaultError(int(bad[0]), "walk", f"on rank {int(bad[0])}")
+        if fault is not None:
+            raise fault
         dev = self.device
         backend = util.resolve_backend(backend, dev)
         nwalks = 0
@@ -575,11 +713,20 @@ class ShardedGraph:
             # value is unobservable and trimmed from the result
             vis[:, : self.n] = torch.as_tensor(visits0, dtype=torch.float32, device=dev)
         dsts, los, his = self._assemble()
-        e_his = tuple(img.edges_hi() for img in self.shards)
-        fn = _sw.make_local_walk(
-            steps, self.n_shards, self.rows_max, self.cap_e, e_his, nwalks, backend
-        )
-        out = fn(dsts, los, his, vis)
+        if self.mesh is None:
+            e_his = tuple(img.edges_hi() for img in self.shards)
+            fn = _sw.make_local_walk(
+                steps, self.n_shards, self.rows_max, self.cap_e, e_his, nwalks, backend
+            )
+            out = fn(dsts, los, his, vis)
+        else:
+            own = self.mesh.rank
+            e_hi = 0 if own in self.down else self.shards[own].edges_hi()
+            fn = _sw.make_sharded_walk(
+                self.mesh, steps, self.n_shards, self.rows_max, self.cap_e, e_hi, nwalks,
+                backend,
+            )
+            out = fn(dsts[own], los[own], his[own], vis)
         walk_image.STATS["dispatches"] += 1
         out = out[:, : self.n]
         return out[0] if visits0 is None else out
@@ -589,24 +736,36 @@ class ShardedGraph:
         return self.reverse_walk(steps, visits0=visits0, backend=backend)
 
     def collective_bytes_per_step(self, steps: int, *, nwalks: int = 0) -> int:
-        """Collective bytes a device receives per walk step: 0 in local
-        mode — the emulation exchanges nothing."""
-        del steps, nwalks
-        return 0
+        """Collective bytes a rank receives per walk step: 0 in local mode
+        (the emulation exchanges nothing); on a mesh, what the exchange
+        counter read over a ``steps``-step walk of ``nwalks`` rows this call
+        runs (a collective: every rank calls it)."""
+        from ..kernels.slot_walk import sharded as _sw
+
+        if self.mesh is None:
+            return 0
+        before = _sw.EXCHANGE["bytes"]
+        v0 = None
+        if nwalks:
+            v0 = torch.ones((nwalks, self.n), dtype=torch.float32, device=self.device)
+        self.reverse_walk(steps, visits0=v0)
+        return (_sw.EXCHANGE["bytes"] - before) // max(steps, 1)
 
     # ------------------------------------------------------------------
     # checkpoint: one file per shard under a shared step manifest
     # ------------------------------------------------------------------
     def state_trees(self) -> dict:
         """{shard_id: flat state dict} — the sharded checkpoint payload
-        (host copies; ``repro``'s keys, dtypes and meta layout)."""
+        (host copies; ``repro``'s keys, dtypes and meta layout).  On a mesh,
+        this rank's own shard only."""
         if self.down:
             raise ShardDownError(
                 f"state_trees: shards {sorted(self.down)} are quarantined — "
                 f"a checkpoint would persist garbage; rebuild first"
             )
         out = {}
-        for s, img in enumerate(self.shards):
+        for s in self._held():
+            img = self.shards[s]
             out[s] = {
                 "dst": _host_copy(img.dst),
                 "wgt": _host_copy(img.wgt),
@@ -623,50 +782,79 @@ class ShardedGraph:
         return out
 
     def save(self, ckpt_dir: str, step: int, *, keep: int = 3) -> str:
+        """One step directory: a ``shard_{s}.npz`` a shard under one
+        manifest (on a mesh each rank writes its own, rank 0 the manifest)."""
         from ..checkpoint import manager as ckpt
 
-        return ckpt.save_arrays_sharded(ckpt_dir, step, self.state_trees(), keep=keep)
+        if self.mesh is None:
+            return ckpt.save_arrays_sharded(ckpt_dir, step, self.state_trees(), keep=keep)
+        return ckpt.save_arrays_mesh(ckpt_dir, step, self.mesh,
+                                     self.state_trees()[self.mesh.rank], keep=keep)
 
     @classmethod
     def restore(cls, ckpt_dir: str, *, step: Optional[int] = None, mesh=None,
-                device="cuda") -> "ShardedGraph":
-        """Serial per-shard restore of a sharded step manifest onto ``device``."""
+                device=None) -> "ShardedGraph":
+        """Restore a sharded step manifest onto ``device`` (the card unless
+        the caller asks for the CPU), every shard serially; on a mesh each
+        rank reads its own shard's file of the same step (the newest, or
+        ``step``) onto ``mesh.device``."""
         from ..checkpoint import manager as ckpt
 
-        _local_only(mesh, "ShardedGraph.restore")
-        dev = util.resolve_device(device)
-        trees, _step = ckpt.restore_arrays_sharded(ckpt_dir, step=step)
-        return cls.from_state_trees(trees, device=dev)
+        _check_mesh(mesh, None, "ShardedGraph.restore")
+        dev = _placement(mesh, device)
+        if mesh is None:
+            trees, _step = ckpt.restore_arrays_sharded(ckpt_dir, step=step)
+        else:
+            step, n_shards = ckpt.step_shards(ckpt_dir, step)
+            _check_mesh(mesh, n_shards, "ShardedGraph.restore")
+            trees = _settled(mesh, lambda: {mesh.rank: ckpt.restore_arrays(
+                ckpt_dir, step=step, shard_id=mesh.rank)[0]})
+        return cls.from_state_trees(trees, mesh=mesh, device=dev)
 
     @classmethod
-    def from_state_trees(cls, trees: dict, *, mesh=None, device="cuda") -> "ShardedGraph":
-        """Rebuild the graph on ``device`` from ``state_trees()`` dicts
-        (either package's)."""
-        _local_only(mesh, "ShardedGraph.from_state_trees")
-        dev = util.resolve_device(device)
+    def from_state_trees(cls, trees: dict, *, mesh=None, device=None) -> "ShardedGraph":
+        """Rebuild the graph on ``device`` (the card unless the caller asks
+        for the CPU) from ``state_trees()`` dicts (either package's, either
+        mode's).  On a mesh ``trees`` needs only this rank's shard."""
+        _check_mesh(mesh, None, "ShardedGraph.from_state_trees")
+        dev = _placement(mesh, device)
         any_meta = next(iter(trees.values()))["meta"]
         n, rows_max, n_shards, dense = (
             int(any_meta[3]), int(any_meta[4]), int(any_meta[5]), bool(any_meta[6]),
         )
-        if sorted(trees) != list(range(n_shards)):
-            raise ValueError(
-                f"sharded restore: have shards {sorted(trees)}, "
-                f"manifest says n_shards={n_shards}"
-            )
-        shards = [image_from_state_tree(trees[s], device=dev) for s in range(n_shards)]
-        return cls(shards=shards, n=n, rows_max=rows_max, n_shards=n_shards, dense=dense)
+        if mesh is None:
+            if sorted(trees) != list(range(n_shards)):
+                raise ValueError(
+                    f"sharded restore: have shards {sorted(trees)}, "
+                    f"manifest says n_shards={n_shards}"
+                )
+            shards = [image_from_state_tree(trees[s], device=dev) for s in range(n_shards)]
+        else:
+            _check_mesh(mesh, n_shards, "ShardedGraph.from_state_trees")
+            if mesh.rank not in trees:
+                raise ValueError(f"sharded restore: no shard {mesh.rank} for rank {mesh.rank} "
+                                 f"(have {sorted(trees)})")
+            shards = [None] * n_shards
+            shards[mesh.rank] = image_from_state_tree(trees[mesh.rank], device=dev)
+        return cls(shards=shards, n=n, rows_max=rows_max, n_shards=n_shards, mesh=mesh,
+                   dense=dense)
 
     def audit(self) -> dict:
         """Per-shard image audits plus the cross-shard boundary pass.
 
         Quarantined shards are skipped (their content is untrusted by
         definition) and reported in ``down`` — a degraded graph audits
-        clean on its healthy part instead of tripping on garbage.
+        clean on its healthy part instead of tripping on garbage.  On a
+        mesh each rank audits its own shard and every rank returns every
+        shard's report (or raises the lowest failing shard's error).
         """
-        reports = [
-            None if s in self.down else self.audit_shard(s)
-            for s in range(self.n_shards)
-        ]
+        def own(s):
+            return None if s in self.down else self._audit_held(s)
+
+        if self.mesh is None:
+            reports = [own(s) for s in range(self.n_shards)]
+        else:
+            reports = self.mesh.settle(lambda: own(self.mesh.rank))
         return {"shards": reports, "m": self.m, "down": sorted(self.down)}
 
 
@@ -679,30 +867,27 @@ def shard_csr(
     *,
     mesh=None,
     dense: Optional[bool] = None,
-    device="cuda",
+    device=None,
 ) -> ShardedGraph:
     """Partition a CSR into per-shard WalkImages on a block vertex layout,
-    every shard on ``device``.
+    every shard on ``device`` (the card unless the caller asks for the CPU).
 
     All shards share one cap_e (``min_cap_e`` floors each build at the
     largest shard's natural capacity), as in ``repro``, so a rebuilt shard
-    can always be swapped in for another of the same graph.
+    can always be swapped in for another of the same graph.  On a mesh
+    every rank passes the same CSR and builds only its own shard, on
+    ``mesh.device``.
     """
-    dev = util.resolve_device(device)
-    _local_only(mesh, "shard_csr")
+    _check_mesh(mesh, None, "shard_csr")
+    dev = _placement(mesh, device)
     if n_shards < 1:
         raise ValueError(f"shard_csr: n_shards must be >= 1, got {n_shards}")
     if c.n < n_shards:
         raise ValueError(f"shard_csr: need n >= n_shards, got n={c.n}, S={n_shards}")
+    _check_mesh(mesh, n_shards, "shard_csr")
     rows_max = -(-c.n // n_shards)
     v_pad = n_shards * rows_max
     o = util.host(c.offsets).astype(np.int64)
-    d = c.dst[: c.m].to(dev)
-    w = (
-        c.wgt[: c.m].to(dev, torch.float32)
-        if c.wgt is not None
-        else torch.ones(c.m, dtype=torch.float32, device=dev)
-    )
     deg = np.diff(o)
     if dense is None:
         dense = _dense_policy(deg, int(c.m))
@@ -713,8 +898,8 @@ def shard_csr(
         _shard_cap(deg_full[s * rows_max:(s + 1) * rows_max], dense)
         for s in range(n_shards)
     )
-    shards = []
-    for s in range(n_shards):
+    shards = [None] * n_shards
+    for s in range(n_shards) if mesh is None else (mesh.rank,):
         lo_v = s * rows_max
         hi_v = min((s + 1) * rows_max, c.n)
         deg_s = np.zeros(v_pad, np.int64)
@@ -722,12 +907,18 @@ def shard_csr(
             deg_s[lo_v:hi_v] = deg[lo_v:hi_v]
         offsets_s = np.concatenate([[0], np.cumsum(deg_s)])
         e0, e1 = (int(o[lo_v]), int(o[hi_v])) if hi_v > lo_v else (0, 0)
-        shards.append(walk_image.WalkImage.from_csr_arrays(
-            offsets_s, d[e0:e1], w[e0:e1], v_pad,
+        w = (
+            c.wgt[e0:e1].to(dev, torch.float32)
+            if c.wgt is not None
+            else torch.ones(e1 - e0, dtype=torch.float32, device=dev)
+        )
+        shards[s] = walk_image.WalkImage.from_csr_arrays(
+            offsets_s, c.dst[e0:e1].to(dev), w, v_pad,
             device=dev, dense=dense, min_cap_e=cap_shared,
-        ))
+        )
     return ShardedGraph(
-        shards=shards, n=int(c.n), rows_max=rows_max, n_shards=n_shards, dense=bool(dense),
+        shards=shards, n=int(c.n), rows_max=rows_max, n_shards=n_shards, mesh=mesh,
+        dense=bool(dense),
     )
 
 
@@ -801,20 +992,55 @@ def _image_coo(img, lo_v: int, hi_v: int, n: int, v_pad: int, sid: int):
     return src, d.to(torch.int64), img.wgt[gidx].to(torch.float32)
 
 
+def _settled(mesh, fn):
+    """``fn()`` on every rank with its failure agreed (every rank raises the
+    lowest failing rank's error); this rank's own result, kept local."""
+    box = []
+    mesh.settle(lambda: box.append(fn()))
+    return box[0]
+
+
+def _all_gather_coo(mesh, src, dst, wgt):
+    """Every rank's (src, dst, wgt) edges, concatenated in rank order, on
+    every rank: one all_gather of ``[3, k]`` int32 words (the weights'
+    bits), padded to the largest rank's count."""
+    dev = mesh.device
+    own = torch.stack([
+        torch.as_tensor(src, device=dev).to(torch.int32),
+        torch.as_tensor(dst, device=dev).to(torch.int32),
+        torch.as_tensor(wgt, dtype=torch.float32, device=dev).view(torch.int32),
+    ])
+    counts = mesh.gather_objects(int(own.shape[1]))
+    width = max(max(counts), 1)
+    buf = torch.zeros((3, width), dtype=torch.int32, device=dev)
+    buf[:, : own.shape[1]] = own
+    parts = [torch.empty_like(buf) for _ in range(mesh.size)]
+    torch.distributed.all_gather(parts, buf, group=mesh.group)
+    words = torch.cat([p[:, :k] for p, k in zip(parts, counts)], dim=1)
+    return words[0].to(torch.int64), words[1].to(torch.int64), words[2].view(torch.float32)
+
+
 def _gather_coo(g: ShardedGraph):
-    """Live (src, dst, wgt) tensors from every shard's block prefixes."""
+    """Live (src, dst, wgt) tensors from every shard's block prefixes (on a
+    mesh, a collective: every rank gets every shard's edges)."""
     if g.down:
         raise ShardDownError(
             f"gather: shards {sorted(g.down)} are quarantined — a global "
             f"gather would stitch garbage; rebuild first"
         )
+    if g.mesh is not None:
+        own = g.mesh.rank
+        coo = _settled(g.mesh, lambda: _image_coo(g.shards[own], *g.owned_range(own), g.n,
+                                                  g.v_pad, own))
+        return _all_gather_coo(g.mesh, *coo)
     parts = [_image_coo(img, *g.owned_range(s), g.n, g.v_pad, s)
              for s, img in enumerate(g.shards)]
     return tuple(torch.cat([p[i] for p in parts]) for i in range(3))
 
 
 def gather_csr(g: ShardedGraph) -> csr_mod.CSR:
-    """Collect the sharded graph back into a CSR on its device."""
+    """Collect the sharded graph back into a CSR on its device (on a mesh,
+    the whole CSR on every rank)."""
     src, dst, wgt = _gather_coo(g)
     return csr_mod.from_coo(src, dst, wgt, n=g.n, dedup=False, device=g.device)
 

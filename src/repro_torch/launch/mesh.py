@@ -1,0 +1,228 @@
+"""The rank mesh of the multi-device walk (DESIGN.md §14), one process a rank.
+
+The port of ``repro.launch.mesh``'s ``host_mesh`` / ``data_axes``.  ``repro``
+is single-controller: one process drives every device of a 1-D ``("data",)``
+mesh through ``shard_map``.  The port is multi-controller: one process a
+rank, each holding one shard, all running the same program and meeting in
+``torch.distributed`` collectives.  ``shard_map_compat`` has no counterpart
+here: the per-rank program IS the shard_map body.
+
+* :class:`Mesh` — this rank's view of the mesh: the process group, its
+  rank, the rank count, its device and the transport (``backend``), with the
+  small collectives the sharded graph agrees through (:meth:`Mesh.settle`,
+  :meth:`Mesh.all_max`).
+* :func:`host_mesh` — the mesh over the first ``n`` ranks of the process
+  group this process joined.
+* :func:`run_ranks` — start ``n`` rank processes (spawned: a parent that
+  already holds a CUDA context must not fork), rendezvous them through a
+  ``file://`` store and join them with a deadline, so a mismatched
+  collective fails instead of hanging.
+
+The transport follows from the topology (:func:`transport`): ``"nccl"``
+when each rank has its own card, ``"gloo"`` when ranks share a card or run
+on the CPU.  Nothing retries one on the failure of the other.
+
+``make_production_mesh`` / ``make_mesh_like`` (TPU pods) are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: Seconds a collective may wait for its peers before it fails.
+DEFAULT_TIMEOUT_S = 120
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One rank's view of a 1-D ``("data",)`` mesh of ranks."""
+
+    group: Any
+    rank: int
+    size: int
+    device: torch.device
+    backend: str
+    axis_names: tuple = ("data",)
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order, on every rank."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def _all_reduce(self, values, op) -> np.ndarray:
+        t = torch.as_tensor(np.asarray(values, np.int64), device=self.device)
+        dist.all_reduce(t, op=op, group=self.group)
+        return t.cpu().numpy()
+
+    def all_max(self, values) -> np.ndarray:
+        """Element-wise MAX of an integer vector (a flag vector) over the ranks."""
+        return self._all_reduce(values, dist.ReduceOp.MAX)
+
+    def all_sum(self, values) -> np.ndarray:
+        """Element-wise sum of an integer vector over the ranks."""
+        return self._all_reduce(values, dist.ReduceOp.SUM)
+
+    def settle(self, fn, *, on: Optional[int] = None) -> list:
+        """Run ``fn()`` (on every rank, or only on rank ``on``) and agree on
+        the outcome: every rank's result in rank order, or on every rank the
+        exception of the lowest rank that raised.
+
+        This is the rule every branch of a mesh-mode method keeps: a
+        decision one rank takes from its own shard is agreed before any rank
+        acts on it, so no rank enters a collective its peers skip.
+        """
+        res, exc = None, None
+        if on is None or on == self.rank:
+            try:
+                res = fn()
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:  # noqa: BLE001 - handed to every rank
+                exc = e
+        outcomes = self.gather_objects((None, res) if exc is None else (_portable(exc), None))
+        for r, (e, _) in enumerate(outcomes):
+            if e is not None:
+                raise exc if r == self.rank else e
+        return [r_ for _, r_ in outcomes]
+
+    def barrier(self) -> None:
+        self.settle(lambda: None)
+
+
+def _portable(exc: BaseException) -> BaseException:
+    """``exc`` if it survives pickling, else a RuntimeError naming it."""
+    try:
+        return pickle.loads(pickle.dumps(exc))
+    except Exception:  # noqa: BLE001 - any unpicklable exception
+        return RuntimeError(f"{type(exc).__name__}: {exc}")
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("host_mesh: no CUDA device; pass device='cpu' to run on the host")
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"host_mesh: device {str(device)!r} requested but no CUDA "
+                               "device is available")
+        if dev.index is None:
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def host_mesh(n_shards: int, *, device=None) -> Mesh:
+    """1-D ``("data",)`` mesh over the first ``n_shards`` ranks of the
+    process group this process joined (``torch.distributed`` initialised).
+
+    ``device`` is this rank's device: by default ``cuda:{rank % cards}``
+    (there is no CPU default); ``"cuda"`` without an index means the same,
+    ``"cpu"`` runs the rank on the host.
+    """
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n_shards:
+        raise ValueError(f"host_mesh: need {n_shards} ranks, have {have}")
+    rank = dist.get_rank()
+    if rank >= n_shards:
+        raise ValueError(f"host_mesh: rank {rank} is outside the first {n_shards} ranks")
+    group = dist.group.WORLD if have == n_shards else dist.new_group(list(range(n_shards)))
+    return Mesh(group=group, rank=rank, size=n_shards, device=_rank_device(device, rank),
+                backend=dist.get_backend(group))
+
+
+def data_axes(mesh) -> tuple:
+    """Axes that carry the batch/vertex dimension."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def transport(n: int, device) -> str:
+    """The collective backend the topology gives ``n`` ranks on ``device``:
+    ``"nccl"`` when every rank has a card of its own, else ``"gloo"``."""
+    dev = torch.device(device) if device is not None else torch.device("cuda")
+    if dev.type != "cuda" or dev.index is not None:
+        return "gloo"
+    return "nccl" if torch.cuda.device_count() >= n else "gloo"
+
+
+def _rank_main(rank: int, fn, n: int, backend: str, device, store: str, timeout: float,
+               args: tuple) -> None:
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(store, 'rdv')}",
+                            world_size=n, rank=rank,
+                            timeout=datetime.timedelta(seconds=min(timeout, DEFAULT_TIMEOUT_S)))
+    try:
+        mesh = host_mesh(n, device=device)
+        if mesh.device.type == "cuda":
+            torch.cuda.set_device(mesh.device)
+        else:
+            torch.set_num_threads(max(1, (os.cpu_count() or n) // n))
+        out = fn(mesh, *args)
+        with open(os.path.join(store, f"result_{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier(group=mesh.group)
+    except BaseException:
+        with open(os.path.join(store, f"error_{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, n: int, *, args: tuple = (), device=None, init_dir: Optional[str] = None,
+              timeout: float = 300.0) -> list:
+    """Run ``fn(mesh, *args)`` on ``n`` spawned ranks; their results in rank
+    order.
+
+    ``fn`` must be picklable (a module-level function).  ``device`` is each
+    rank's (``host_mesh``'s rule: ``"cpu"``, ``"cuda"`` for a card a rank
+    where there are enough, ``"cuda:0"`` for one shared card), and the
+    transport is :func:`transport`'s for ``n`` ranks on it.  The
+    rendezvous file and the results live in a fresh directory under
+    ``init_dir`` (the system's temporary directory by default), removed on
+    the way out.  A collective fails after ``min(timeout,
+    DEFAULT_TIMEOUT_S)`` seconds without its peers, and the ranks are killed
+    if they have not all finished within ``timeout``: a rank that raised, or
+    died, takes the others down and its error is raised here.
+    """
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    backend = transport(n, device)
+    store = tempfile.mkdtemp(prefix="ranks_", dir=init_dir)
+    try:
+        ctx = mp.start_processes(_rank_main, args=(fn, n, backend, device, store, timeout, args),
+                                 nprocs=n, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"run_ranks: {n} ranks still running after {timeout} s")
+        except (ProcessException, TimeoutError) as e:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in ctx.processes:
+                p.join()
+            raise RuntimeError(f"run_ranks: {e}" + "".join(
+                f"\n-- rank {r}:\n" + open(os.path.join(store, f"error_{r}.txt")).read()
+                for r in range(n) if os.path.exists(os.path.join(store, f"error_{r}.txt"))
+            )) from e
+        out = []
+        for rank in range(n):
+            with open(os.path.join(store, f"result_{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+    finally:
+        shutil.rmtree(store, ignore_errors=True)

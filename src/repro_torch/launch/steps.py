@@ -24,7 +24,7 @@ seq]``; GNN node and edge counts padded to 512, GCN's ``d_in`` set to the
 shape's feature width, GraphCast's ``remat`` and ``bf16`` and MACE's
 ``edge_chunks=64`` above 2M edges.  The GNN ``chunkN`` variants wait for
 ``launch/roofline.py``, and ``attach_shardings`` for ``launch/shardings.py``
-(ROADMAP.md §1 item 3); ``donate`` belongs to XLA.  A step updates its
+(ROADMAP.md §1 item 6); ``donate`` belongs to XLA.  A step updates its
 state's tensors in place.
 """
 from __future__ import annotations
@@ -482,7 +482,7 @@ def build_cell(arch: str, shape_name: str, *, reduced: bool = False, variant: st
         if variant != "full":
             raise NotImplementedError(
                 f"{arch}: the {variant!r} variants wait for launch/roofline.py "
-                "(ROADMAP.md §1 item 3)")
+                "(ROADMAP.md §1 item 6)")
         if shape["kind"] == "sampled":
             return _gnn_sampled_cell(entry, cfg, shape, **kw)
         return _gnn_train_cell(entry, cfg, shape, **kw)

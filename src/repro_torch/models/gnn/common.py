@@ -249,5 +249,5 @@ class GNNModel(ParamTree):
 def check_shard_axes(cfg) -> None:
     if cfg.shard_axes:
         raise NotImplementedError(
-            "shard_axes: sharding constraints come with the multi-device walk "
-            "(ROADMAP.md §1 item 3)")
+            "shard_axes: sharding constraints come with model sharding over a "
+            "DeviceMesh (ROADMAP.md §1 item 6)")

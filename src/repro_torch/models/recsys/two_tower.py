@@ -54,7 +54,8 @@ class TwoTowerConfig:
     def __post_init__(self):
         if self.shard_axes:
             raise NotImplementedError(
-                "shard_axes: sharding constraints come with the mesh (ROADMAP.md §1 item 3)")
+                "shard_axes: sharding constraints come with model sharding over a "
+                "DeviceMesh (ROADMAP.md §1 item 6)")
 
 
 def _tower_shapes(cfg: TwoTowerConfig, vocab: int, n_fields: int):

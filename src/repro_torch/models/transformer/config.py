@@ -5,8 +5,8 @@ h2o-danube w/ SWA) and MoE (qwen3-moe, arctic w/ dense residual).
 ``repro``'s ``TransformerConfig`` less what belongs to XLA or the mesh:
 ``scan_layers`` (a ``lax.scan`` over the stacked layers; the port runs a
 Python loop over them, so there is nothing to choose), ``batch_axes`` and
-``tp_axis`` (activation sharding constraints, which come with the mesh,
-ROADMAP.md §1 item 3).  The dtypes are torch dtypes; ``backend`` picks the
+``tp_axis`` (activation sharding constraints, which come with model
+sharding over a DeviceMesh, ROADMAP.md §1 item 6).  The dtypes are torch dtypes; ``backend`` picks the
 attention kernel as ``TwoTowerConfig``'s does (``"auto"`` | ``"cuda"`` |
 ``"torch"``).
 """

@@ -95,8 +95,8 @@ def moe_ffn(
     """Returns (output [T, D] in ``compute_dtype``, aux_loss scalar)."""
     if ep_axis or token_axes:
         raise NotImplementedError(
-            "moe_ffn: expert parallelism (ep_axis, token_axes) comes with the mesh "
-            "(ROADMAP.md §1 item 3)")
+            "moe_ffn: expert parallelism (ep_axis, token_axes) comes with model sharding "
+            "over a DeviceMesh (ROADMAP.md §1 item 6)")
     t, d = x.shape
     e = router_w.shape[-1]
     cd = compute_dtype

@@ -40,7 +40,7 @@ deletes of absent keys filter out).
 Crash points, torn-tail repair, and the post-recovery invariant sweep
 are exercised through ``runtime/faultinject.py``.
 
-The sharded half (DESIGN.md §15/§17), for a ``ShardedGraph`` in local mode:
+The sharded half (DESIGN.md §15/§17), for a ``ShardedGraph``:
 
 * **owner-routed parallel replay** — ``recover(parallel=True)`` partitions
   replayed records by shard owner through the SAME ``route_updates``
@@ -57,6 +57,16 @@ The sharded half (DESIGN.md §15/§17), for a ``ShardedGraph`` in local mode:
 * **online single-shard rebuild** — ``rebuild_shard`` restores one
   quarantined shard from its checkpoint chain, replays its slice of the WAL
   window and its spool, and reintegrates it while the rest keeps serving.
+
+Over a graph on a mesh (``launch.mesh.Mesh``, one process a rank) every rank
+wraps its own process's graph with the same arguments and makes the same
+calls: rank 0 alone appends to the WAL (its outcome agreed, so a failed
+append raises on every rank), every rank writes its own shard's arrays into
+the step rank 0 commits, ``recover(mesh=)`` restores each rank's own shard
+and replays the same records through ``apply`` (each rank patching its own
+rows: the mesh is the parallel replay), and ``rebuild_shard`` rebuilds on
+the owning rank.  The directories are local mode's, so either mode recovers
+what the other wrote.
 """
 from __future__ import annotations
 
@@ -70,7 +80,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..checkpoint import manager as ckpt
-from ..core import REPRESENTATIONS, distributed as dist, updates, util, walk_image
+from ..core import REPRESENTATIONS, distributed as dist, updates, walk_image
 from . import faultinject
 
 #: Record header: magic "WAL1", sequence number, vertex watermark, op
@@ -466,14 +476,32 @@ class DurableGraph:
         # replay applies are not tracked → first post-recovery checkpoint
         # must be a full one (as in repro, so the chains agree)
         self._force_full = bool(_recovering)
-        self.journal = UpdateJournal(
-            wal_dir, segment_bytes=segment_bytes, fsync=fsync, repair=_recovering,
-        )
+        #: the graph's mesh (None: one process holds every shard)
+        self.mesh = rep.mesh if self._sharded else None
+
+        def journal(repair):
+            return UpdateJournal(wal_dir, segment_bytes=segment_bytes, fsync=fsync,
+                                 repair=repair)
+
+        if self.mesh is None:
+            self.journal = journal(_recovering)
+        else:
+            # rank 0 appends and repairs; the others read once it has
+            own = []
+            self.mesh.settle(lambda: own.append(journal(_recovering)), on=0)
+            self.journal = own[0] if own else journal(False)
         self.seq = self.journal.next_seq - 1
         self._applies_since_ckpt = 0
         self._nv_bound = max(int(rep.n), 1)
-        if not _recovering and ckpt.latest_step(ckpt_dir) is None:
+        if not _recovering and self._on_rank0(lambda: ckpt.latest_step(ckpt_dir)) is None:
             self.checkpoint()
+
+    def _on_rank0(self, fn):
+        """``fn()`` here, or on a mesh on rank 0 with its result (or its
+        exception) handed to every rank."""
+        if self.mesh is None:
+            return fn()
+        return self.mesh.settle(fn, on=0)[0]
 
     @property
     def rep_name(self) -> str:
@@ -491,6 +519,8 @@ class DurableGraph:
         rep = self.rep
         per = []
         for sid, sub in dist.route_updates(plan, rep.n_shards, rep.rows_max):
+            if not rep.holds(sid):
+                continue
             img = rep.shards[sid]
             rows = sub.touched_rows(rep.v_pad)
             per.append((sid, rows, img.block_ranges(rows), img.bump))
@@ -587,7 +617,7 @@ class DurableGraph:
         plan.validate()
         nv_bound = max(self._nv_bound, plan.max_insert_vertex() + 1)
         faultinject.fire("durable.pre_append")
-        seq = self.journal.append(plan, nv_bound)
+        seq = self._on_rank0(lambda: self.journal.append(plan, nv_bound))
         faultinject.fire("durable.post_append")
         dm = self._rep_apply(plan)
         self.seq = seq
@@ -617,7 +647,7 @@ class DurableGraph:
             nv = max(nv, p.max_insert_vertex() + 1)
             bounds.append(nv)
         faultinject.fire("durable.pre_append")
-        seqs = self.journal.append_group(plans, bounds)
+        seqs = self._on_rank0(lambda: self.journal.append_group(plans, bounds))
         faultinject.fire("durable.post_append")
         total = 0
         for p, seq, b in zip(plans, seqs, bounds):
@@ -649,7 +679,8 @@ class DurableGraph:
         }
         if self._sharded:
             shards = {int(s): dict(t) for s, t in self.rep.state_trees().items()}
-            shards[0].update(meta)
+            if 0 in shards:
+                shards[0].update(meta)
         else:
             arrays = dict(self.rep.state_tree())
             arrays.update(meta)
@@ -658,19 +689,23 @@ class DurableGraph:
         want_diff = (
             self.diff
             and not self._force_full
-            and ckpt.latest_step(self.ckpt_dir) is not None
+            and self._on_rank0(lambda: ckpt.latest_step(self.ckpt_dir)) is not None
             and self._ckpts_since_full < self.full_every - 1
         )
-        if want_diff:
-            dirty = self._export_dirty() if self._sharded else None
+        dirty = self._export_dirty() if want_diff and self._sharded else None
+        if self.mesh is not None:
+            own = self.mesh.rank
+            path = ckpt.save_arrays_mesh(self.ckpt_dir, step, self.mesh, shards[own],
+                                         keep=self.keep, diff=want_diff,
+                                         dirty=(dirty or {}).get(own))
+        elif want_diff:
             path = ckpt.save_arrays_diff(self.ckpt_dir, step, shards, keep=self.keep,
                                          dirty=dirty)
-            self._ckpts_since_full += 1
         else:
             path = ckpt.save_arrays_sharded(self.ckpt_dir, step, shards, keep=self.keep)
-            self._ckpts_since_full = 0
+        self._ckpts_since_full = self._ckpts_since_full + 1 if want_diff else 0
         self._reset_dirty()
-        self.journal.truncate_through(self.seq)
+        self._on_rank0(lambda: self.journal.truncate_through(self.seq))
         self._applies_since_ckpt = 0
         return path
 
@@ -680,7 +715,7 @@ class DurableGraph:
         wal_dir: str,
         ckpt_dir: str,
         *,
-        device="cuda",
+        device=None,
         checkpoint_every: int = 0,
         keep: int = 3,
         fsync: bool = False,
@@ -708,21 +743,32 @@ class DurableGraph:
         4. run the cross-layer invariant audit on the result (the
            per-shard + cross-boundary pass for sharded graphs).
 
-        ``mesh`` takes only None (local mode; the multi-device mesh is not
-        ported).  ``stats``, if given, receives ``restore_s`` /
+        With a ``mesh`` (every rank calls it with the same arguments) the
+        checkpoint must hold a sharded graph of ``mesh.size`` shards: rank 0
+        sweeps the debris, picks the step and reads the wrapper meta, each
+        rank restores its own shard (onto ``mesh.device``), and every rank
+        replays the same records through ``apply``, patching its own rows
+        (``parallel`` has nothing to add: the ranks are the parallel
+        replay).  ``stats``, if given, receives ``restore_s`` /
         ``replay_s`` / ``records``.
         """
-        dev = util.resolve_device(device)
-        dist._local_only(mesh, "DurableGraph.recover")
+        dist._check_mesh(mesh, None, "DurableGraph.recover")
+        dev = dist._placement(mesh, device)
         t0 = time.perf_counter()
-        ckpt.clean_stale(ckpt_dir)
-        trees, _step = ckpt.restore_arrays_diff(ckpt_dir)
-        meta = trees[0 if 0 in trees else min(trees)]
+        if mesh is None:
+            ckpt.clean_stale(ckpt_dir)
+            trees, _step = ckpt.restore_arrays_diff(ckpt_dir)
+            meta = trees[0 if 0 in trees else min(trees)]
+        else:
+            trees, meta = cls._restore_mesh(ckpt_dir, mesh)
         name = str(meta.pop("__meta__/rep")[()])
         wal_seq = int(meta.pop("__meta__/wal_seq")[()])
         nv_bound = int(meta.pop("__meta__/nv_bound")[()])
         if name == "sharded":
-            rep = dist.ShardedGraph.from_state_trees(trees, device=dev)
+            rep = dist.ShardedGraph.from_state_trees(trees, mesh=mesh, device=dev)
+        elif mesh is not None:
+            raise TypeError(f"recover: a mesh restores a sharded graph; the checkpoint "
+                            f"holds {name!r}")
         elif name in REPRESENTATIONS:
             rep = REPRESENTATIONS[name].from_state_tree(meta, device=dev)
         else:
@@ -737,7 +783,7 @@ class DurableGraph:
         )
         g.seq = wal_seq
         g._nv_bound = max(nv_bound, 1)
-        if g._sharded and parallel:
+        if g._sharded and parallel and mesh is None:
             records = g._replay_parallel(wal_seq)
         else:
             records = 0
@@ -758,6 +804,28 @@ class DurableGraph:
             stats.update(restore_s=t1 - t0, replay_s=t2 - t1, records=records)
         return g
 
+    @staticmethod
+    def _restore_mesh(ckpt_dir: str, mesh):
+        """Each rank restores its own shard of the newest step (every rank
+        reads the same directory; rank 0 sweeps the debris).  -> ({rank:
+        arrays}, the wrapper meta (shard 0's ``__meta__/*`` keys, handed to
+        every rank))."""
+        step, n_shards = ckpt.step_shards(ckpt_dir)
+        dist._check_mesh(mesh, n_shards, "DurableGraph.recover")
+        mesh.settle(lambda: ckpt.clean_stale(ckpt_dir), on=0)
+        box = {}
+
+        def own():
+            arrays, _ = ckpt.restore_shard_diff(ckpt_dir, mesh.rank, step=step)
+            box["meta"] = {k: arrays.pop(k) for k in list(arrays) if k.startswith("__meta__/")}
+            box["arrays"] = arrays
+            return box["meta"] or None
+
+        metas = mesh.settle(own)
+        if metas[0] is None:
+            raise ValueError(f"recover: shard 0 of step {step} carries no wrapper meta")
+        return {mesh.rank: box["arrays"]}, dict(metas[0])
+
     def _replay_parallel(self, after: int) -> int:
         """Owner-routed parallel WAL replay over the shards (§15).
 
@@ -774,6 +842,7 @@ class DurableGraph:
         the fallback the live path takes, so recovered content is the
         same.
         """
+        import threading
         from concurrent.futures import ThreadPoolExecutor
 
         records = []
@@ -784,7 +853,8 @@ class DurableGraph:
         if not records:
             return 0
 
-        def drain(sid, subs):
+        def drain(sid, subs, start):
+            start.wait()  # each touched shard drains on a pool thread of its own
             img = self.rep.shards[sid]
             for k, sub in enumerate(subs):
                 if img._stale:
@@ -807,7 +877,9 @@ class DurableGraph:
                             plan, self.rep.n_shards, self.rep.rows_max
                         ):
                             queues.setdefault(sid, []).append(sub)
-                    leftovers = list(ex.map(lambda kv: drain(*kv), sorted(queues.items())))
+                    start = threading.Barrier(len(queues), timeout=60)
+                    leftovers = list(ex.map(lambda kv: drain(*kv, start),
+                                            sorted(queues.items())))
                     self.rep._placed = None
                     extra = [p for rest in leftovers for p in rest]
                     if extra or any(img._pending for img in self.rep.shards):
@@ -849,6 +921,10 @@ class DurableGraph:
         rebuild is unsound then and :class:`ShardDownError` directs the
         caller to a full ``recover()``.  Returns the number of WAL records
         replayed.
+
+        On a mesh every rank calls it: the owning rank restores, replays and
+        swaps its shard in, and every rank gets its outcome (the record
+        count, or its error) and takes the shard back.
         """
         if not self._sharded:
             raise TypeError("rebuild_shard: single-device rep has no shards")
@@ -856,6 +932,27 @@ class DurableGraph:
         sid = int(sid)
         if sid not in rep.down:
             raise ValueError(f"rebuild_shard: shard {sid} is not quarantined")
+        if self.mesh is None:
+            records, t0, t1 = self._rebuild_held(sid)
+        else:
+            records, t0, t1 = self.mesh.settle(lambda: self._rebuild_held(sid), on=sid)[sid]
+            rep.down.discard(sid)
+            rep._placed = None
+        if self.diff:
+            # replay applies were not dirty-tracked: the next differential
+            # checkpoint must persist this shard in full
+            d = self._dirty.setdefault(sid, _ShardDirty())
+            d.full = d.touched = True
+            d.rows, d.ranges = [], []
+        t2 = time.perf_counter()
+        if stats is not None:
+            stats.update(restore_s=t1 - t0, replay_s=t2 - t1, records=records)
+        return records
+
+    def _rebuild_held(self, sid: int):
+        """Restore, replay and reintegrate shard ``sid`` (held here);
+        -> (records replayed, start time, restore end time)."""
+        rep = self.rep
         t0 = time.perf_counter()
         arrays, step = ckpt.restore_shard_diff(self.ckpt_dir, sid)
         arrays = {k: v for k, v in arrays.items() if not k.startswith("__meta__/")}
@@ -890,17 +987,11 @@ class DurableGraph:
                     img = dist.shard_image_apply(rep, sid, img, sub)
         for sub in rep.spooled(sid):
             img = dist.shard_image_apply(rep, sid, img, sub)
-        rep.reintegrate(sid, img)
-        if self.diff:
-            # replay applies were not dirty-tracked: the next differential
-            # checkpoint must persist this shard in full
-            d = self._dirty.setdefault(sid, _ShardDirty())
-            d.full = d.touched = True
-            d.rows, d.ranges = [], []
-        t2 = time.perf_counter()
-        if stats is not None:
-            stats.update(restore_s=t1 - t0, replay_s=t2 - t1, records=records)
-        return records
+        if rep.mesh is None:
+            rep.reintegrate(sid, img)
+        else:
+            rep._swap_in(sid, img)  # the caller agrees the outcome
+        return records, t0, t1
 
     # -- passthrough conveniences --------------------------------------
     def to_csr(self):

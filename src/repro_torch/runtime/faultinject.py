@@ -100,6 +100,9 @@ class SimulatedCrash(BaseException):
         super().__init__(f"simulated crash at {point}")
         self.point = point
 
+    def __reduce__(self):
+        return type(self), (self.point,)
+
 
 class InjectedKernelError(RuntimeError):
     """Stand-in for a kernel- or I/O-level failure at an injection point."""
@@ -107,6 +110,9 @@ class InjectedKernelError(RuntimeError):
     def __init__(self, point: str):
         super().__init__(f"injected kernel failure at {point}")
         self.point = point
+
+    def __reduce__(self):
+        return type(self), (self.point,)
 
 
 class AuditError(RuntimeError):

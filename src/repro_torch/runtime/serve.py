@@ -308,6 +308,11 @@ class WalkServer:
         walk_backend: str = "auto",
         audit_every: int = 0,
     ):
+        if getattr(rep, "mesh", None) is not None:
+            raise NotImplementedError(
+                "WalkServer: a graph on a mesh walks in a collective every rank must "
+                "enter, so serving it needs rank 0 to broadcast each batch to the others "
+                "(ROADMAP.md §1 item 7)")
         self._rep = rep
         self.max_queue = int(max_queue)
         self.batch_max = int(batch_max)

@@ -10,7 +10,9 @@ against the host oracle ``_host_apply``; ``gather_csr``; the checkpoint
 round trip.  Across the packages: ``route_updates``' subplans,
 ``state_trees()`` and the CRC descriptors bit for bit, and step
 directories written by one package restored by the other.  A ``mesh``
-other than None raises: only the local mode is ported.
+that is not a ``launch.mesh.Mesh`` raises ``TypeError``, and one whose
+rank count is not the shard count ``ValueError`` (the mesh mode itself is
+held by ``tests/test_torch_mesh.py``).
 """
 import json
 import os
@@ -28,6 +30,7 @@ from repro_torch.core import csr, distributed as dist, edgebatch, updates
 from repro_torch.core.walk_image import WalkImage
 from repro_torch.kernels.csr_build import ref as csr_ref
 from repro_torch.kernels.slot_walk import sharded as sw_sharded
+from repro_torch.launch.mesh import Mesh
 from repro_torch.runtime import durable
 
 STEPS = 4
@@ -321,26 +324,35 @@ def test_hypothesis_sweep_parity():
 
 
 # ---------------------------------------------------------------------------
-# local mode only; the default device is the card
+# what a mesh must be; the default device is the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("entry", ["shard_csr", "ShardedGraph", "from_state_trees", "restore",
                                    "recover"])
 def test_mesh_other_than_none_raises(entry, tmp_path):
+    """Each entry point refuses a ``mesh`` that is not a ``Mesh`` (TypeError)
+    and a ``Mesh`` whose rank count is not the shard count (ValueError,
+    before any collective)."""
     c, _ = _csrs(10, 16, 60)
     g = dist.shard_csr(c, 2, **CPU)
+    g.save(str(tmp_path / "ck"), 1)
+    durable.DurableGraph(g, str(tmp_path / "w"), str(tmp_path / "c")).close()
+    three = Mesh(group=None, rank=0, size=3, device=torch.device("cpu"), backend="gloo")
     calls = {
-        "shard_csr": lambda: dist.shard_csr(c, 2, mesh=object(), **CPU),
-        "ShardedGraph": lambda: dist.ShardedGraph(shards=g.shards, n=g.n, rows_max=g.rows_max,
-                                                  n_shards=2, mesh=object()),
-        "from_state_trees": lambda: dist.ShardedGraph.from_state_trees(
-            g.state_trees(), mesh=object(), **CPU),
-        "restore": lambda: dist.ShardedGraph.restore(str(tmp_path), mesh=object(), **CPU),
-        "recover": lambda: durable.DurableGraph.recover(str(tmp_path / "w"),
-                                                        str(tmp_path / "c"), mesh=object(),
-                                                        **CPU),
+        "shard_csr": lambda mesh: dist.shard_csr(c, 2, mesh=mesh, **CPU),
+        "ShardedGraph": lambda mesh: dist.ShardedGraph(shards=g.shards, n=g.n,
+                                                       rows_max=g.rows_max, n_shards=2,
+                                                       mesh=mesh),
+        "from_state_trees": lambda mesh: dist.ShardedGraph.from_state_trees(
+            g.state_trees(), mesh=mesh, **CPU),
+        "restore": lambda mesh: dist.ShardedGraph.restore(str(tmp_path / "ck"), mesh=mesh,
+                                                          **CPU),
+        "recover": lambda mesh: durable.DurableGraph.recover(
+            str(tmp_path / "w"), str(tmp_path / "c"), mesh=mesh, **CPU),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        calls[entry]()
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
+        calls[entry](object())
+    with pytest.raises(ValueError, match="mesh device count != n_shards"):
+        calls[entry](three)
 
 
 def test_shards_live_on_the_requested_device():

@@ -96,7 +96,8 @@ def test_serving_imports_neither_jax_nor_repro(module):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.core.distributed",
-                                    "repro_torch.kernels.slot_walk.sharded"])
+                                    "repro_torch.kernels.slot_walk.sharded",
+                                    "repro_torch.launch.mesh", "repro_torch.runtime.fault"])
 def test_sharded_graph_imports_neither_jax_nor_repro(module):
     _imports_alone(module)
 
