@@ -129,8 +129,21 @@ SNAP's soc-LiveJournal1):
           against the local mode's, rebuild_shard (timed); three durable
           plans, a crash at durable.post_append, recover(mesh=) (timed)
           bit for bit against an uncrashed twin's state_trees; a growth
-          plan re-sharding every rank (timed) and its walk bit for bit; the
-          ranks' kernel launches added to the path's
+          plan re-sharding every rank (timed) and its walk bit for bit;
+          then serving the grown graph (a checkpoint first, the rebuild's
+          base): rank 0's WalkServer, the other ranks following it through
+          the op channel.  A closed loop (walk, an acked update, walk, the
+          walk whose shard.walk fault on rank 2 is served degraded on its
+          retry, rebuild_shard(2) through run_on_writer, walk) bit for bit
+          against the same loop through a local-mode server (responses,
+          generations, coverage, down shards, the counters); then the
+          sharded phase's open-loop level (120 walks 2 ms apart, an update
+          of 256 every 10, a shard.walk fault on rank 1), zero lost and no
+          torn read against the per-generation oracle, after one B = 16
+          batch timed; tile_cumsum and merge_rows_fused launched in the
+          serving on every rank; the [mesh_serve] line (p50/p99, req/s,
+          ack p99, the batch, ops a rank).  The ranks' kernel launches
+          added to the path's
   walk_bsr
           a road graph at scale 24 (16,777,216 vertices, ~36.9M directed
           edges, the class of SuiteSparse's asia_osm) re-blocked into
@@ -323,6 +336,14 @@ SHARDS, SHARD_PLAN_FRAC, SHARD_SERVE_REQUESTS = 4, 1e-3, 120
 #: the mesh phase: its ranks (one shard each, all on the one card over
 #: gloo) and their deadline; every collective fails after 120 s
 MESH_RANKS, MESH_TIMEOUT_S = SHARDS, 420
+#: the mesh phase's serving: the closed loop's walks before the one whose
+#: shard.walk fault fires on shard 2, the local-mode loop's retry pause
+#: (its writer reseals degraded first; on the mesh the retry waits for the
+#: writer's round instead, after the default pause), the open-loop level's
+#: faulted shard and the walks on it before its fault, and how long any
+#: ticket may take
+MESH_SERVE_FAULT_WALKS, MESH_SERVE_BACKOFF_S = 2, 0.5
+MESH_OPEN_FAULT_SHARD, MESH_OPEN_FAULT_AFTER, MESH_SERVE_WAIT_S = 1, 2, 120.0
 #: rows whose block spans at least a tile: the walk's hub-row band
 #: (ROADMAP.md §3) applies to them, the plain rtol to the rest
 HUB_DEGREE = 128
@@ -1094,6 +1115,22 @@ def assert_same_sharded(a, b, what: str, dist) -> None:
                 raise AssertionError(f"{what}: shard {s} state_trees[{key!r}] differs")
 
 
+def down_rows_of(g):
+    """``count_torn_reads``' ``down_rows_of`` for a sharded graph ``g``: a
+    degraded response's down shards' rows (None at full coverage)."""
+    rows = {}
+
+    def of(t_):
+        if not t_.down_shards:
+            return None
+        key = tuple(t_.down_shards)
+        if key not in rows:
+            rows[key] = np.concatenate([np.arange(*g.owned_range(s_)) for s_ in key])
+        return rows[key]
+
+    return of
+
+
 def sharded_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> None:
     """The sharded phase (see the module docstring).  ``c`` is the social
     CSR on the card, ``g`` the update phase's DiGraph (after ``plans``).
@@ -1382,19 +1419,8 @@ def sharded_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> N
                 faultinject.disarm()
                 srv.stop(timeout=120.0)
             stats = srv.assert_no_lost()
-            down_of = {}
-
-            def down_rows_of(t_):
-                if not t_.down_shards:
-                    return None
-                key = tuple(t_.down_shards)
-                if key not in down_of:
-                    down_of[key] = np.concatenate([np.arange(*twin.owned_range(s_))
-                                                   for s_ in key])
-                return down_of[key]
-
             torn, checked = launch_serve.count_torn_reads(oracle, walks, upds,
-                                                          down_rows_of=down_rows_of)
+                                                          down_rows_of=down_rows_of(twin))
             served = [t_ for t_ in walks if t_.status == serve_mod.SERVED]
             degraded = [t_ for t_ in served if t_.coverage < 1.0]
             if (torn or checked != len(served) or fired != 1 or stats["failed"]
@@ -1434,6 +1460,73 @@ def sharded_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> N
         torch.cuda.empty_cache()
 
 
+def rebuild_shard_2(srv) -> int:
+    """The closed loop's admin function (module-level: on the mesh every rank
+    runs it, so it is pickled by reference): rebuild shard 2."""
+    return srv.rep.rebuild_shard(2)
+
+
+def serve_script(srv, plan, seeds) -> dict:
+    """The mesh phase's closed serving loop, every ticket waited for: a walk;
+    an update, acked; a walk; the walk whose ``shard.walk`` fault (armed by
+    the caller) fires on shard 2, served degraded on its retry;
+    ``rebuild_shard(2)`` through ``run_on_writer`` and its reseal; a walk.
+    -> the responses (visits on the card, generation, coverage, down
+    shards), the update's ΔM and ack generation, the records rebuilt and
+    the deterministic counters."""
+    def walk():
+        t = srv.submit_walk(seeds, steps=SERVE_STEPS)
+        if not t.wait(MESH_SERVE_WAIT_S):
+            raise AssertionError("serve script: a walk is still pending")
+        t.result()
+        return t
+
+    done = [walk()]
+    u = srv.submit_update(plan)
+    dm = u.result(MESH_SERVE_WAIT_S)
+    done += [walk(), walk()]
+    records = srv.run_on_writer(rebuild_shard_2, reseal=True).result(MESH_SERVE_WAIT_S)
+    deadline = time.monotonic() + MESH_SERVE_WAIT_S
+    while srv.stats()["coverage"] != 1.0:
+        if time.monotonic() > deadline:
+            raise AssertionError("serve script: never resealed at full coverage")
+        time.sleep(0.01)
+    done.append(walk())
+    stats = srv.stats()
+    return {"walks": [(t.visits, t.generation, t.coverage, list(t.down_shards)) for t in done],
+            "dm": int(dm), "ack_generation": u.generation, "records": int(records),
+            "counters": {k: stats[k] for k in ("served", "updates_applied", "seals",
+                                               "shard_quarantines", "dispatch_retries",
+                                               "admin_ops")}}
+
+
+def mesh_open_loop(srv, n: int, launch_serve) -> dict:
+    """Rank 0's open-loop level: one B = 16 batch timed (a single walk
+    first, the 16 queued behind it, so they go as one batch), then the
+    sharded phase's traffic.  -> the tickets and the level's times."""
+    rng = np.random.default_rng(SERVE_VERIFY_SEED)
+    probe = [srv.submit_walk(rng.integers(0, n, SERVE_SEEDS), steps=SERVE_STEPS)]
+    while srv.stats()["queue_depth"]:
+        time.sleep(0.0005)
+    probe += [srv.submit_walk(rng.integers(0, n, SERVE_SEEDS), steps=SERVE_STEPS)
+              for _ in range(SERVE_BATCH)]
+    for t_ in probe:
+        if not t_.wait(MESH_SERVE_WAIT_S):
+            raise AssertionError("mesh_serve: a probe walk is still pending")
+    one_batch = srv.stats()["batches"] == 2
+    b16_ms = (max(t_.resolved_at for t_ in probe[1:]) - probe[0].resolved_at) * 1e3
+    t0 = time.monotonic()
+    walks, upds = launch_serve.run_traffic(
+        srv, n, requests=SHARD_SERVE_REQUESTS, steps=SERVE_STEPS,
+        seeds_per_request=SERVE_SEEDS, update_every=SERVE_UPDATE_EVERY,
+        update_size=SERVE_UPDATE_SIZE, seed=SERVE_SEED, submit_gap_s=0.002)
+    for t_ in walks + [u_ for u_, _ in upds]:
+        if not t_.wait(MESH_SERVE_WAIT_S):
+            raise AssertionError("mesh_serve: a ticket is still pending")
+    return {"probe": probe, "walks": walks, "upds": upds, "wall_s": time.monotonic() - t0,
+            "b16_ms": b16_ms if one_batch else None}
+
+
 def mesh_rank(mesh, root: str) -> dict:
     """One rank of the mesh phase, in its own process (see the module
     docstring): shard ``mesh.rank`` of the social graph on ``mesh.device``,
@@ -1445,7 +1538,8 @@ def mesh_rank(mesh, root: str) -> dict:
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.slot_update import ops as su_ops
     from repro_torch.kernels.slot_walk import sharded as sw_sharded
-    from repro_torch.runtime import durable, faultinject
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.runtime import durable, faultinject, serve as serve_mod
 
     dev, rank = mesh.device, mesh.rank
     with open(os.path.join(root, "meta.json")) as f:
@@ -1596,11 +1690,110 @@ def mesh_rank(mesh, root: str) -> dict:
     check(r.rep.n == n + 7 and r.rep.generation == 1, f"grown to n={r.rep.n}")
     v = walk_launches(lambda: r.reverse_walk(4), 4, "walk after growth")
     check(same_bits(v, on_card("grow4")), "the walk after growth differs")
+    del v
+
+    # 7. serving the grown graph: rank 0's WalkServer, the other ranks
+    # following it.  The closed loop bit for bit against the local mode's
+    # (its shard.walk fault on rank 2's shard, after its first two walks)
+    sv, served, ops = meta["serve"], dict.fromkeys(KERNELS, 0), {}
+    _, t["mesh_serve_ckpt_ms"] = timed(r.checkpoint)  # rebuild_shard's base after the re-shard
+    srv = serve_mod.WalkServer(r, batch_max=SERVE_BATCH, dispatch_retries=4)
+    if rank == 2:
+        faultinject.arm("shard.walk", after=MESH_SERVE_FAULT_WALKS, times=1)
+    secs = {}
+    s0 = time.perf_counter()
+    try:
+        with counted(KERNELS, served):
+            srv.start()
+            try:
+                script = (serve_script(srv, plan_of("serve_plan"), np.asarray(sv["seeds"]))
+                          if rank == 0 else None)
+            finally:
+                srv.stop(timeout=MESH_SERVE_WAIT_S)
+        fired = faultinject.fired("shard.walk")
+    finally:
+        faultinject.disarm()
+    check(fired == int(rank == 2), f"serve script: shard.walk fired {fired} times here")
+    ops["closed"] = srv.op_counts()
+    if rank == 0:
+        for i, (vis, gen, cov, down) in enumerate(script.pop("walks")):
+            check(same_bits(vis, on_card(f"serve_walk{i}")),
+                  f"serve script: walk {i}'s visits differ from the local mode's")
+            check([gen, cov, down] == sv["walks"][i],
+                  f"serve script: walk {i} served at {(gen, cov, down)}, local mode "
+                  f"{sv['walks'][i]}")
+        check(script == sv["rest"], f"serve script: {script} vs the local mode's {sv['rest']}")
+        del vis
+    secs["closed_s"] = time.perf_counter() - s0
+
+    # 8. the open-loop level: 120 four-step walks 2 ms apart, an update of
+    # 256 every 10, one shard.walk fault (rank 1's shard), every served walk
+    # against the per-generation oracle
+    s0 = time.perf_counter()
+    gc = dist.gather_csr(r.rep)
+    oracle = launch_serve.GenerationOracle(gc) if rank == 0 else None
+    del gc
+    secs["oracle_s"], s0 = time.perf_counter() - s0, time.perf_counter()
+    srv = serve_mod.WalkServer(r, batch_max=SERVE_BATCH, dispatch_retries=4)
+    if rank == MESH_OPEN_FAULT_SHARD:
+        faultinject.arm("shard.walk", after=MESH_OPEN_FAULT_AFTER, times=1)
+    try:
+        with counted(KERNELS, served):
+            srv.start()
+            try:
+                level = mesh_open_loop(srv, r.rep.n, launch_serve) if rank == 0 else None
+            finally:
+                srv.stop(timeout=MESH_SERVE_WAIT_S)
+        fired = faultinject.fired("shard.walk")
+    finally:
+        faultinject.disarm()
+    check(fired == int(rank == MESH_OPEN_FAULT_SHARD),
+          f"open loop: shard.walk fired {fired} times here")
+    ops["open"] = srv.op_counts()
+    secs["open_s"] = time.perf_counter() - s0
+    serve_out = {"launches": served, "ops": ops, "down": sorted(r.rep.down), "secs": secs}
+    for k_ in ("tile_cumsum", "merge_rows_fused"):
+        check(served[k_] > 0, f"serving: {k_} never launched on this rank")
+    if rank == 0:
+        stats = srv.assert_no_lost()
+        walks = level["probe"] + level["walks"]
+        torn, checked = launch_serve.count_torn_reads(oracle, walks, level["upds"],
+                                                      down_rows_of=down_rows_of(r.rep))
+        done = [t_ for t_ in level["walks"] if t_.status == serve_mod.SERVED]
+        degraded = [t_ for t_ in done if t_.coverage < 1.0]
+        # the faulted batch is retried after the writer round that
+        # quarantines its shard: on the degraded generation
+        retried = [t_ for t_ in done if t_.attempts]
+        check(torn == 0 and checked == stats["served"] == len(walks) and not stats["failed"]
+              and stats["shard_quarantines"] == 1 and degraded and retried
+              and all(t_.coverage < 1.0 for t_ in retried)
+              and stats["down_shards"] == (MESH_OPEN_FAULT_SHARD,)
+              and r.rep.down == {MESH_OPEN_FAULT_SHARD},
+              f"open loop: torn {torn} of {checked}, {len(degraded)} degraded, retried at "
+              f"{[t_.coverage for t_ in retried]}, stats {stats}, down {r.rep.down}")
+        first_degraded = min(t_.resolved_at for t_ in degraded)
+        pct = launch_serve.percentiles([t_.latency_s for t_ in done])
+        acks = launch_serve.percentiles([u_.resolved_at - u_.submitted_at
+                                         for u_, _ in level["upds"]
+                                         if u_.status == serve_mod.SERVED])
+        serve_out.update(
+            script=script, p50_ms=pct["p50_ms"], p99_ms=pct["p99_ms"],
+            req_per_s=len(done) / level["wall_s"], ack_p99_ms=acks["p99_ms"],
+            b16_ms=level["b16_ms"], served=len(done), degraded=len(degraded),
+            updates=stats["updates_applied"], batches=stats["batches"], seals=stats["seals"],
+            max_batch=stats["max_batch"], dispatch_retries=stats["dispatch_retries"],
+            torn_reads=torn, torn_checked=checked,
+            min_coverage=min(t_.coverage for t_ in done), final_coverage=stats["coverage"],
+            before_degraded=sum(t_.resolved_at < first_degraded for t_ in done),
+            fault_retry_ms=max(t_.latency_s for t_ in retried) * 1e3)
+        del oracle, level, walks, done, degraded, retried
+    for k_, v_ in served.items():
+        phase[k_] += v_
     r.close()
     return {"rank": rank, "backend": mesh.backend, "device": str(dev), "launches": phase,
             "times": t, "rows_max": rows_max, "bytes1": bytes1, "bytes16": bytes16,
             "patched": patched, "records_rebuilt": records, "shard_bytes": shard_bytes,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "serve": serve_out, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def mesh_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> None:
@@ -1613,6 +1806,7 @@ def mesh_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> None
     from repro_torch.core import distributed as dist, edgebatch, updates, util
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.runtime import durable, faultinject, serve as serve_mod
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         f"chip_smoke_mesh_{os.getpid()}")
@@ -1663,10 +1857,46 @@ def mesh_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> None
         sg.apply(grow)
         save_plan("grow", grow)
         save("grow4", sg.reverse_walk(4))
+        # the closed serving loop over a DurableGraph of the grown graph,
+        # its shard.walk fault on shard 2 (after the first two walks' checks
+        # of every shard and the third's of shards 0 and 1)
+        srng = np.random.default_rng(SERVE_SEED)
+        splan = updates.plan_update(
+            inserts=edgebatch.random_insertions(srng, sg.n, SERVE_UPDATE_SIZE))
+        save_plan("serve_plan", splan)
+        sseeds = srng.integers(0, sg.n, SERVE_SEEDS)
+        ls0 = time.perf_counter()
+        dg = durable.DurableGraph(sg, os.path.join(root, "local_wal"),
+                                  os.path.join(root, "local_ckpt"))
+        srv = serve_mod.WalkServer(dg, batch_max=SERVE_BATCH, dispatch_retries=4,
+                                   retry_backoff=MESH_SERVE_BACKOFF_S)
+        faultinject.arm("shard.walk", after=MESH_SERVE_FAULT_WALKS * SHARDS + 2, times=1)
+        try:
+            srv.start()
+            try:
+                script = serve_script(srv, splan, sseeds)
+            finally:
+                srv.stop(timeout=MESH_SERVE_WAIT_S)
+        finally:
+            faultinject.disarm()
+        dg.close()
+        shutil.rmtree(os.path.join(root, "local_wal"))
+        shutil.rmtree(os.path.join(root, "local_ckpt"))
+        local_serve_s = time.perf_counter() - ls0
+        walks = script.pop("walks")
+        for i, (vis, _, _, _) in enumerate(walks):
+            save(f"serve_walk{i}", vis)
+        (_, _, cov, down), = [w for w in walks if w[2] < 1.0]
+        if down != [2] or script["records"] != 1 or script["counters"]["dispatch_retries"] != 1:
+            raise AssertionError(f"mesh/serve: the local mode's script served {walks[1:]} "
+                                 f"and {script}")
         with open(os.path.join(root, "meta.json"), "w") as f:
             json.dump({"n": n, "m": int(c.m), "plans": [name for name, _ in plans],
-                       "coverage": coverage}, f)
-        del sg, ref, v0
+                       "coverage": coverage,
+                       "serve": {"seeds": sseeds.tolist(), "rest": script,
+                                 "walks": [[g_, c_, d_] for _, g_, c_, d_ in walks]}}, f)
+        serve_coverage = cov
+        del sg, ref, v0, dg, srv, walks, vis
         torch.cuda.empty_cache()
         local_s = time.perf_counter() - p0
 
@@ -1699,7 +1929,47 @@ def mesh_phase(c, g, plans, launches: dict, times: dict, dev, card: str) -> None
                 patched="/".join(f"{k_}={v_}" for k_, v_ in r_["patched"].items()),
                 launches="/".join(f"{k_}={v_}" for k_, v_ in r_["launches"].items() if v_),
                 peak_gb=f"{r_['peak_gb']:.2f}")
-        say("mesh", card=card, local_mode_s=f"{local_s:.1f}", ranks_s=f"{ranks_s:.1f}",
+        sv = ranks[0]["serve"]
+        ops0 = {}
+        for o_ in sv["ops"].values():
+            for k_, v_ in o_.items():
+                ops0[k_] = ops0.get(k_, 0) + v_
+        if any(r_["serve"]["down"] != [MESH_OPEN_FAULT_SHARD] for r_ in ranks):
+            raise AssertionError(f"mesh_serve: down {[r_['serve']['down'] for r_ in ranks]}")
+        times["mesh_serve_p50_ms"], times["mesh_serve_p99_ms"] = sv["p50_ms"], sv["p99_ms"]
+        times["mesh_serve_req_per_s"] = sv["req_per_s"]
+        times["mesh_serve_ack_p99_ms"] = sv["ack_p99_ms"]
+        if sv["b16_ms"] is not None:
+            times["mesh_serve_b16_ms"] = sv["b16_ms"]
+        say("mesh_serve", card=f"'{card}'",
+            transport="'4 ranks on one H100 over gloo, not a multi-card figure'",
+            p50_ms=f"{sv['p50_ms']:.2f}", p99_ms=f"{sv['p99_ms']:.2f}",
+            req_per_s=f"{sv['req_per_s']:.2f}", ack_p99_ms=f"{sv['ack_p99_ms']:.2f}",
+            b16_batch_ms="not one batch" if sv["b16_ms"] is None else f"{sv['b16_ms']:.2f}",
+            served=sv["served"], degraded=sv["degraded"], updates=sv["updates"],
+            batches=sv["batches"], seals=sv["seals"], max_batch=sv["max_batch"],
+            dispatch_retries=sv["dispatch_retries"], lost=0, torn_reads=sv["torn_reads"],
+            served_before_degraded=sv["before_degraded"],
+            fault_retry_ms=f"{sv['fault_retry_ms']:.2f}",
+            torn_checked=sv["torn_checked"], min_coverage=f"{sv['min_coverage']:.6f}",
+            final_coverage=f"{sv['final_coverage']:.6f}",
+            script="walk/update/walk/degraded walk/rebuild_shard(2)/walk bit for bit vs "
+                   "local mode", script_coverage=f"{serve_coverage:.6f}",
+            script_counters="/".join(f"{k_}={v_}" for k_, v_ in sv["script"]["counters"].items()),
+            ops_per_rank="/".join(str(sum(sum(o_.values()) for o_ in r_["serve"]["ops"].values()))
+                                  for r_ in ranks),
+            ops_rank0="/".join(f"{k_}={v_}" for k_, v_ in sorted(ops0.items())),
+            served_launches="; ".join(
+                f"rank {r_['rank']}: " + "/".join(f"{k_}={v_}" for k_, v_ in
+                                                 r_["serve"]["launches"].items() if v_)
+                for r_ in ranks))
+        secs = {k_: max(r_["serve"]["secs"][k_] for r_ in ranks)
+                for k_ in ("closed_s", "oracle_s", "open_s")}
+        say("mesh", card=card, local_mode_s=f"{local_s:.1f}",
+            local_serve_s=f"{local_serve_s:.1f}", ranks_s=f"{ranks_s:.1f}",
+            ranks_serve_closed_s=f"{secs['closed_s']:.1f}",
+            ranks_serve_oracle_s=f"{secs['oracle_s']:.1f}",
+            ranks_serve_open_s=f"{secs['open_s']:.1f}",
             disk_peak_bytes=dir_bytes(root), phase_s=f"{time.perf_counter() - p0:.1f}")
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -17,6 +17,10 @@ here: the per-rank program IS the shard_map body.
   already holds a CUDA context must not fork), rendezvous them through a
   ``file://`` store and join them with a deadline, so a mismatched
   collective fails instead of hanging.
+* :class:`Channel` — rank 0's ordered stream of op headers to the other
+  ranks, and the agreement that ends each op: how one process that sees the
+  requests (``runtime.serve.WalkServer`` on rank 0) makes every rank enter
+  the same collectives in the same order.
 
 The transport follows from the topology (:func:`transport`): ``"nccl"``
 when each rank has its own card, ``"gloo"`` when ranks share a card or run
@@ -26,6 +30,7 @@ on the CPU.  Nothing retries one on the failure of the other.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import os
@@ -143,6 +148,99 @@ def host_mesh(n_shards: int, *, device=None) -> Mesh:
                 backend=dist.get_backend(group))
 
 
+def collective_timeout_s(mesh: Mesh) -> float:
+    """Seconds a collective of ``mesh``'s group waits for its peers before
+    it fails: the timeout its process group was created with."""
+    dev = torch.device("cpu" if mesh.backend == "gloo" else mesh.device.type)
+    return mesh.group._get_backend(dev).options._timeout.total_seconds()
+
+
+class Channel:
+    """Rank 0's ordered stream of op headers to the other ranks of ``mesh``.
+
+    A mesh-mode call is a collective every rank must enter with the same
+    arguments in the same order, but only one process (rank 0) sees the
+    requests that decide which call comes next.  Rank 0 sends a picklable
+    header (:meth:`send`; host data only: an op name and its arguments) and
+    then runs the op; every other rank receives the headers in order
+    (:meth:`recv`) and runs the same op.  Each op ends in :meth:`agree`, so
+    an exception on any rank is raised on every rank and no rank goes on to
+    a collective its peers skip.
+
+    A rank blocked in :meth:`recv` waits at most the group's collective
+    timeout (:attr:`timeout_s`, read off the group): the sender keeps an
+    idle channel alive by sending a heartbeat header at least every
+    :attr:`beat_s` seconds (see :meth:`idle_s`), so only a silent or dead
+    rank 0 ends a receiver's wait.
+    ``counts`` tallies the headers this rank sent or received by op name.
+    """
+
+    #: the header that keeps an idle channel inside the collective timeout
+    BEAT = ("beat", {})
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.counts: collections.Counter = collections.Counter()
+        #: the exception the last failed :meth:`agree` raised on this rank
+        self.last_error: Optional[BaseException] = None
+        self._src = dist.get_global_rank(mesh.group, 0)
+        #: the group's collective timeout, which a heartbeat must beat
+        self.timeout_s = collective_timeout_s(mesh)
+        self._last = time.monotonic()
+
+    @property
+    def leader(self) -> bool:
+        """Whether this rank sends (rank 0) or receives."""
+        return self.mesh.rank == 0
+
+    @property
+    def beat_s(self) -> float:
+        """The longest a sender may stay silent: a quarter of the timeout."""
+        return self.timeout_s / 4
+
+    def idle_s(self) -> float:
+        """Seconds since this rank last sent or received a header."""
+        return time.monotonic() - self._last
+
+    def _note(self, header) -> None:
+        self.counts[header[0]] += 1
+        self._last = time.monotonic()
+
+    def send(self, header: tuple) -> None:
+        """Broadcast ``header`` (``(op, kwargs)``, picklable) from rank 0."""
+        if not self.leader:
+            raise RuntimeError(f"Channel.send: rank {self.mesh.rank} receives; rank 0 sends")
+        dist.broadcast_object_list([header], src=self._src, group=self.mesh.group)
+        self._note(header)
+
+    def recv(self) -> tuple:
+        """The next header rank 0 sent (blocks; fails after the timeout)."""
+        box = [None]
+        dist.broadcast_object_list(box, src=self._src, group=self.mesh.group)
+        self._note(box[0])
+        return box[0]
+
+    def agree(self, fn):
+        """``fn()`` on this rank, then agree on the outcome: this rank's own
+        result (nothing is exchanged but the outcome), or on every rank the
+        exception of the lowest rank that raised, which is also kept as
+        ``last_error``.  A failure of the agreement's own collective (a dead
+        peer, a timeout) propagates as it is."""
+        res, exc = None, None
+        try:
+            res = fn()
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as e:  # noqa: BLE001 - handed to every rank
+            exc = e
+        outcomes = self.mesh.gather_objects(None if exc is None else _portable(exc))
+        for r, e in enumerate(outcomes):
+            if e is not None:
+                self.last_error = exc if r == self.mesh.rank else e
+                raise self.last_error
+        return res
+
+
 def data_axes(mesh) -> tuple:
     """Axes that carry the batch/vertex dimension."""
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
@@ -157,11 +255,11 @@ def transport(n: int, device) -> str:
     return "nccl" if torch.cuda.device_count() >= n else "gloo"
 
 
-def _rank_main(rank: int, fn, n: int, backend: str, device, store: str, timeout: float,
+def _rank_main(rank: int, fn, n: int, backend: str, device, store: str, coll_timeout: float,
                args: tuple) -> None:
     dist.init_process_group(backend, init_method=f"file://{os.path.join(store, 'rdv')}",
                             world_size=n, rank=rank,
-                            timeout=datetime.timedelta(seconds=min(timeout, DEFAULT_TIMEOUT_S)))
+                            timeout=datetime.timedelta(seconds=coll_timeout))
     try:
         mesh = host_mesh(n, device=device)
         if mesh.device.type == "cuda":
@@ -181,7 +279,7 @@ def _rank_main(rank: int, fn, n: int, backend: str, device, store: str, timeout:
 
 
 def run_ranks(fn, n: int, *, args: tuple = (), device=None, init_dir: Optional[str] = None,
-              timeout: float = 300.0) -> list:
+              timeout: float = 300.0, collective_timeout: Optional[float] = None) -> list:
     """Run ``fn(mesh, *args)`` on ``n`` spawned ranks; their results in rank
     order.
 
@@ -192,17 +290,20 @@ def run_ranks(fn, n: int, *, args: tuple = (), device=None, init_dir: Optional[s
     rendezvous file and the results live in a fresh directory under
     ``init_dir`` (the system's temporary directory by default), removed on
     the way out.  A collective fails after ``min(timeout,
-    DEFAULT_TIMEOUT_S)`` seconds without its peers, and the ranks are killed
-    if they have not all finished within ``timeout``: a rank that raised, or
-    died, takes the others down and its error is raised here.
+    collective_timeout)`` seconds without its peers (``DEFAULT_TIMEOUT_S``
+    when ``collective_timeout`` is None; :func:`collective_timeout_s`),
+    and the ranks are killed if they have not all finished within
+    ``timeout``: a rank that raised, or died, takes the others down and its
+    error is raised here.
     """
     import torch.multiprocessing as mp
     from torch.multiprocessing.spawn import ProcessException
 
     backend = transport(n, device)
+    coll = min(timeout, DEFAULT_TIMEOUT_S if collective_timeout is None else collective_timeout)
     store = tempfile.mkdtemp(prefix="ranks_", dir=init_dir)
     try:
-        ctx = mp.start_processes(_rank_main, args=(fn, n, backend, device, store, timeout, args),
+        ctx = mp.start_processes(_rank_main, args=(fn, n, backend, device, store, coll, args),
                                  nprocs=n, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         try:

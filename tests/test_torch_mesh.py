@@ -568,18 +568,6 @@ def test_host_mesh_needs_its_ranks():
         mesh_mod.host_mesh(4, device="cpu")
 
 
-def test_walk_server_refuses_a_mesh_graph():
-    from repro_torch.runtime import serve
-
-    c = _overflow_csr()
-    img = dist.shard_csr(c, 2, **CPU).shards[0]
-    two = mesh_mod.Mesh(group=None, rank=0, size=2, device=torch.device("cpu"),
-                        backend="gloo")
-    g = dist.ShardedGraph(shards=[img, None], n=c.n, rows_max=6, n_shards=2, mesh=two)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        serve.WalkServer(g)
-
-
 def _raise_on_rank_one(mesh):
     if mesh.rank == 1:
         raise RuntimeError("rank 1 fails")
@@ -638,4 +626,61 @@ def test_mesh_walk_on_the_card(tmp_path):
         np.testing.assert_array_equal(x["walk3"], want3, err_msg=f"rank {r}")
         _same_gather(x["gather"], (gc.offsets.cpu(), gc.dst[: gc.m].cpu(), gc.wgt[: gc.m].cpu()))
         assert x["launches"]["tile_cumsum"] == 2 * STEPS, r
+    assert sum(x["launches"]["merge_rows_fused"] for x in ranks) > 0
+
+
+def _card_serve_rank(mesh, inputs_path: str, work: str) -> dict:
+    """The scripted sequence of ``tests/test_torch_mesh_serve.py`` on this
+    rank's card: rank 0 drives, the others follow."""
+    import functools
+
+    import test_torch_mesh_serve as T
+    from repro_torch.kernels import KERNELS
+    from repro_torch.runtime import serve
+
+    inp = dict(np.load(inputs_path))
+    for k in KERNELS.values():
+        k.launches = 0
+    out = {}
+    srv = serve.WalkServer(dist.shard_csr(T._script_csr(inp, mesh.device), S, mesh=mesh),
+                           **T.SERVER_A)
+    out["a"], stats = T._serve(srv, mesh, lambda s: T.drive_a(s, T._plan(inp, "a")))
+    out["a_counters"], out["a_generation"] = T.counters(stats), srv.generation.gen_id
+    dg = durable.DurableGraph(dist.shard_csr(T._script_csr(inp, mesh.device), S, mesh=mesh),
+                              os.path.join(work, "serve_wal"), os.path.join(work, "serve_ck"))
+    srv = serve.WalkServer(dg, **T.SERVER_B_MESH)
+    if mesh.rank == 0:
+        T.late_rounds(srv)
+    out["b"], stats = T._serve(srv, mesh, lambda s: T.drive_b(
+        s, [T._plan(inp, "b1"), T._plan(inp, "b2")],
+        lambda: faultinject.arm("shard.walk", times=1),
+        functools.partial(T.rebuild_on_writer, sid=0)))
+    faultinject.disarm()
+    out["b_counters"], out["b_generation"] = T.counters(stats), srv.generation.gen_id
+    out["b_down"] = sorted(dg.rep.down)
+    dg.close()
+    out["launches"] = {k: v.launches for k, v in KERNELS.items()}
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.timeout(DEADLINE)
+def test_mesh_serve_on_the_card(tmp_path):
+    """4 gloo ranks on ``cuda:0`` serve ``tests/test_torch_mesh_serve.py``'s
+    scripted sequence (rank 0's WalkServer, the others following) bit for
+    bit against a local-mode server on the same card; every rank launches
+    ``tile_cumsum``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import test_torch_mesh_serve as T
+
+    inputs = str(tmp_path / "inputs.npz")
+    inp = T._inputs()
+    np.savez(inputs, **inp)
+    ranks = mesh_mod.run_ranks(_card_serve_rank, S, args=(inputs, str(tmp_path)),
+                               device="cuda:0", init_dir=str(tmp_path), timeout=DEADLINE)
+    local = T._local_script(inp, str(tmp_path), device="cuda")
+    T._same_script(ranks[0], local, "mesh on the card vs local mode on the card")
+    for r, x in enumerate(ranks):
+        assert x["launches"]["tile_cumsum"] > 0, r
     assert sum(x["launches"]["merge_rows_fused"] for x in ranks) > 0
