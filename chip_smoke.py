@@ -183,7 +183,7 @@ SNAP's soc-LiveJournal1):
           seed, 8 greedy steps timed); prefill against 64 decode steps in
           float32
   gnn_train
-          (run first, right after the build, on an empty card)
+          (run second, after model_shard, on an emptied card)
           the GNN family trained at each config's FULL width through
           launch.steps.build_cell (the build and the steps counted as the
           main path): gcn-cora on ogb_products (2,449,408 nodes, 61,859,328
@@ -203,7 +203,7 @@ SNAP's soc-LiveJournal1):
           messages and held against it within 2*gamma(deg)*sum|terms|; the
           SMOKE gcn-cora cell's steps on the card against the CPU
   lm_train
-          (run second, right after gnn_train, on an emptied card)
+          (run third, right after gnn_train, on an emptied card)
           LM and two-tower training at full width and the large LMs'
           prefills, each cell built by launch.steps.build_cell:
           h2o-danube-1.8b train_4k at all 24 layers (remat, the blocked
@@ -227,6 +227,38 @@ SNAP's soc-LiveJournal1):
           the model FLOPs' share of 989 TFLOP/s; losses finite and every
           parameter leaf changed
 
+  model_shard
+          (run first, right after the build: its processes need the card
+          empty of the main process's cached memory) model sharding
+          over a (2, 2) ("data", "model") DeviceMesh of 4 ranks spawned on
+          the one card over gloo (not a multi-card figure): gcn-cora x
+          ogb_products (edges over every axis, edge_segment_runs on each
+          rank's edges), two-tower train_batch at full width (vocabularies
+          cut to 2M rows: SHARD_TT_ROWS; the table's rows over "model",
+          embedding_bag on each rank's rows), h2o-danube-1.8b train_4k cost2
+          (2 microbatches of 2 x 4,096 tokens; FSDP over "data", TP over
+          "model") and prefill_32k cost2 (batch 1, flash_attention on each
+          rank's 16 q / 4 kv heads).  The ranks build at once: each draws
+          the full gcn and h2o cells from the seed and keeps its shards, and
+          only its own rows of two-tower's tables (drawn in seeded blocks of
+          rows); a warm-up step and a timed one (CUDA events, peak,
+          collective bytes and counts by kind, kernel launches, which must
+          be above 0 on every rank).  Held against the same cells run
+          unsharded on the card in a process of their own: the losses; the
+          float32 cells' first grads and their parameters after the two
+          steps, each leaf's RMS distance and the share of elements beyond
+          ROADMAP.md section 3's elementwise tolerances within the cell's
+          limits (SHARD_F32_LIMITS); the bf16 train cell's parameters (each
+          leaf within a quarter of its change); the prefill's logits
+          (section 3's bf16 bound against the unsharded model through the
+          plain attention, and against the same sharded model through the
+          plain attention).  The same cells dry-run on a fake
+          (2, 2) mesh (launch.dryrun) give the ranks' argument and
+          collective bytes exactly; the production 16x16 dry run of
+          h2o-danube-1.8b train_4k (cost2/cost4/opt1/opt2) and mace x
+          ogb_products (chunk2/chunk4) prints their roofline terms
+          (launch.roofline: H100 data-sheet constants, modelled)
+
 then holds each kernel against its plain PyTorch version at the shapes its
 path gave it and times both.  The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -235,6 +267,7 @@ is printed.  Without a CUDA device it exits non-zero at once.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -376,20 +409,50 @@ LARGE_PREFILLS = (("qwen3-moe-235b-a22b", 16), ("arctic-480b", 7), ("qwen2-72b",
 #: (tables, their dense grads and float32 moments alone would take 81.9 GB)
 #: and the batch from 65,536 (its [B, B] logits and their grad 34 GB)
 TT_ROWS, TT_BATCH, TT_STEPS = 5_000_000, 16_384, 2
+#: the model_shard phase: a (2, 2) ("data", "model") DeviceMesh of 4 ranks,
+#: all on the one card over gloo, and their deadline; its cells (gcn-cora x
+#: ogb_products, two-tower train_batch, h2o-danube-1.8b train_4k and
+#: prefill_32k at cost2)
+SHARD_MESH, SHARD_AXES, SHARD_TIMEOUT_S = (2, 2), ("data", "model"), 600
+SHARD_CELLS = ("gcn", "two_tower", "train", "prefill")
+#: two-tower's vocabularies in the model_shard phase, cut from lm_train's
+#: 5M rows because the 4 ranks share one 80 GB card: at 5M a rank holds
+#: 20.5 GB (its table shards, their float32 moments and dense grads), 82 GB
+#: for the four; at 3M the step's peak (18.6 GB a rank: the grads'
+#: all-reduce and the norm's temporaries) ran out of memory once; 2M rows
+SHARD_TT_ROWS = 2_000_000
+#: two-tower's tables in the model_shard phase are drawn in blocks of this
+#: many rows, each block from a generator of its own seed, so that a rank
+#: draws only its own rows and the unsharded run the same values
+TT_DRAW_ROWS = 1 << 18
+#: the float32 train cells, held against the unsharded run's: the first
+#: step's grads and the parameters after the two steps.  The sharded step
+#: sums in other orders (each rank's rows, then a reduction).  On the card
+#: (gcn / two-tower): the grads' RMS distance read 8.82e-6 / 7.52e-4 of
+#: their RMS (two-tower's L2 norms and 1/0.05 temperature), 7.49e-3 /
+#: 1.15e-3 of the grad elements and 5.76e-4 / 2.16e-5 of the parameters
+#: fell beyond ROADMAP.md §3's elementwise rtol 1e-4 / rtol 1e-5, atol 1e-6
+#: (Adam divides each grad by its own size, so a grad near 0 carries the
+#: sums' order at lr scale), and the parameters' RMS distance read 1.20e-3
+#: / 4.12e-3 of their RMS change in the steps.  Each limit is about four
+#: times its cell's reading.  A wrong placement moves the grads O(1) (the
+#: table grad fault of ROADMAP.md §3: 13.7 of 15.6)
+SHARD_F32_LIMITS = {
+    "gcn": {"grad_rms": 4e-5, "grad_share": 3e-2, "param_share": 2.5e-3, "param_step": 5e-3},
+    "two_tower": {"grad_rms": 3e-3, "grad_share": 5e-3, "param_share": 1e-4,
+                  "param_step": 1.6e-2},
+}
+#: the bfloat16 train cell: each leaf's RMS distance from the unsharded run
+#: at most this share of its RMS change over the two steps
+SHARD_BF16_STEP_RATIO = 0.25
+#: the production-mesh dry run whose roofline rows the phase prints
+SHARD_ROOFLINE = (("h2o-danube-1.8b", "train_4k", ("cost2", "cost4", "opt1", "opt2")),
+                  ("mace", "ogb_products", ("chunk2", "chunk4")))
 #: sampled table-grad rows held against the plain bag's step
 TT_GRAD_ROWS = 256
 #: a train step through the bag kernel against the same through the plain
 #: bag on the card: the loss, and each grad sample within this of its max
 TT_RTOL = 1e-5
-
-
-def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs attention computes: key j is visible to query i
-    when j <= i (causal) and j > i - window (window > 0)."""
-    q = np.arange(sq)
-    hi = np.minimum(q + 1, skv) if causal else np.full(sq, skv)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else 0
-    return int(np.maximum(hi - lo, 0).sum())
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -2165,6 +2228,8 @@ def lm_flops(cfg, n_seq: int, seq: int, train: bool) -> float:
     multiply-add of every matrix a token touches (MoE: its routed experts;
     the embedding is a gather) and 4*Hq*Dh a visible (query, key) pair; a
     train step three times the forward."""
+    from repro_torch.kernels.flash_attention.kernel import visible_pairs
+
     d, n_layers = cfg.d_model, cfg.n_layers
     matmul = cfg.n_active_params() - cfg.vocab * d - (2 * n_layers + 1) * d
     if cfg.qkv_bias:
@@ -2220,6 +2285,8 @@ def hold_flash(q, k, v, group: int, d: int, what: str) -> dict:
     """One layer's q/k/v through the flash kernel against the plain
     attention (rtol 2^-7, atol 2^-12*max|v|), at GQA ``group`` and head dim
     ``d``; the kernel's time and rate on the visible pairs."""
+    from repro_torch.kernels.flash_attention.kernel import visible_pairs
+
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     if q.shape[1] // k.shape[1] != group or q.shape[-1] != d:
@@ -2769,6 +2836,515 @@ def serve_phase(g, launches: dict, times: dict, dev, card: str) -> None:
         faultinject.disarm()
 
 
+# ---------------------------------------------------------------------------
+# model_shard: model sharding over a DeviceMesh
+# ---------------------------------------------------------------------------
+def tt_table_rows(tower: int, lo: int, hi: int, dev) -> torch.Tensor:
+    """Rows [lo, hi) of the model_shard two-tower cell's table ``tower`` (0
+    the users', 1 the items'): N(0,1)·0.01, as ``two_tower.init_params``
+    draws a table, in blocks of TT_DRAW_ROWS rows, block ``b`` from a
+    generator seeded SEED + 1 + 2b + tower."""
+    from repro_torch.configs import two_tower_retrieval
+
+    d = two_tower_retrieval.FULL.embed_dim
+    out = torch.empty((hi - lo, d), dtype=torch.float32, device=dev)
+    for b in range(lo // TT_DRAW_ROWS, -(-hi // TT_DRAW_ROWS)):
+        b0 = b * TT_DRAW_ROWS
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1 + 2 * b + tower)
+        block = torch.randn((min(TT_DRAW_ROWS, SHARD_TT_ROWS - b0), d), generator=gen,
+                            dtype=torch.float32, device=dev).mul_(0.01)
+        s0, s1 = max(lo, b0), min(hi, b0 + block.shape[0])
+        out[s0 - lo:s1 - lo] = block[s0 - b0:s1 - b0]
+    return out
+
+
+def shard_cell_program(name: str, dev, data_axes: tuple, own_rows: bool = False):
+    """The model_shard phase's cell ``name`` on ``dev`` (concrete, or fakes
+    under a ``FakeTensorMode``), drawn from SEED, its config carrying
+    ``data_axes``' sharding axes and its kernel sites on the kernels:
+    (cell, arch, shape, the kernel its path must launch or None).  With
+    ``own_rows``, two-tower's tables (and so their moments) are meta
+    tensors, for each rank to make its own rows (``own_table_rows``)."""
+    from repro_torch.configs import two_tower_retrieval
+    from repro_torch.core import tree
+    from repro_torch.launch import steps
+    from repro_torch.models.recsys import two_tower
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.train import loop as train_loop
+
+    # a float32 cell's step hands its grads to ``grad_hook["fn"]`` (when set)
+    # before the update: the phase holds the first step's grads
+    hook = {"fn": None}
+
+    def seen(grads):
+        return grads if hook["fn"] is None else hook["fn"](grads)
+
+    if name == "gcn":
+        cell = steps.build_cell("gcn-cora", "ogb_products", device=dev, seed=SEED,
+                                data_axes=data_axes)
+        cfg = dataclasses.replace(cell.meta["cfg"], backend="cuda")
+        cell.step_fn = train_loop.make_train_step(
+            lambda p, b: cell.meta["module"].loss_fn(p, b, cfg), steps.OPT_CFG,
+            compress_fn=seen)
+        cell.meta["grad_hook"] = hook
+        return cell, "gcn-cora", "ogb_products", "edge_segment_runs"
+    if name == "two_tower":
+        cfg = dataclasses.replace(two_tower_retrieval.FULL, n_users=SHARD_TT_ROWS,
+                                  n_items=SHARD_TT_ROWS, backend="cuda",
+                                  shard_axes=tuple(data_axes))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        # the towers' MLPs from ``gen``, the tables in seeded row blocks
+        params = two_tower.init_params(dataclasses.replace(cfg, n_users=1, n_items=1),
+                                       generator=gen, device=dev)
+        for t_, tower in enumerate(("user", "item")):
+            params[tower]["table"] = (
+                torch.empty((SHARD_TT_ROWS, cfg.embed_dim), dtype=torch.float32, device="meta")
+                if own_rows else tt_table_rows(t_, 0, SHARD_TT_ROWS, dev))
+        state = train_loop.init_state(tree.tree_map(lambda p: p.requires_grad_(), params),
+                                      steps.OPT_CFG)
+
+        def bags(nf):
+            return torch.randint(-1, SHARD_TT_ROWS, (TT_BATCH, nf, cfg.bag_size),
+                                 generator=gen, device=dev, dtype=torch.int32)
+
+        batch = {"user_bags": bags(cfg.n_user_fields), "item_bags": bags(cfg.n_item_fields),
+                 "item_logq": torch.zeros((TT_BATCH,), dtype=torch.float32, device=dev)}
+        step = train_loop.make_train_step(lambda p, b: two_tower.loss_fn(p, b, cfg),
+                                          steps.OPT_CFG, compress_fn=seen)
+        cell = steps.CellProgram(step_fn=step, args=(state, batch),
+                                 meta={"cfg": cfg, "grad_hook": hook},
+                                 loop_correction={"kind": "recsys"})
+        return cell, "two-tower-retrieval", "train_batch", "embedding_bag"
+    if name == "train":
+        cell = steps.build_cell("h2o-danube-1.8b", "train_4k", variant="cost2", device=dev,
+                                seed=SEED, data_axes=data_axes)
+        state, full = cell.args
+        batch = {k_: v_[:H2O_ACCUM * H2O_UB].reshape(H2O_ACCUM, H2O_UB, -1)
+                 for k_, v_ in full.items()}
+        cfg = dataclasses.replace(cell.meta["cfg"], backend="cuda")
+        cell.step_fn = train_loop.make_train_step(lambda p, b: tm.loss_fn(p, b, cfg),
+                                                  cell.meta["opt_cfg"], grad_accum=H2O_ACCUM)
+        cell.args = (state, batch)
+        return cell, "h2o-danube-1.8b", "train_4k", None
+    cell = steps.build_cell("h2o-danube-1.8b", "prefill_32k", variant="cost2", device=dev,
+                            seed=SEED, data_axes=data_axes)
+    cell.args = (cell.args[0], cell.args[1][:PREFILL_BATCH])
+    cell.step_fn = cell.meta["make_step"]("cuda", attn_impl="flash")
+    return cell, "h2o-danube-1.8b", "prefill_32k", "flash_attention"
+
+
+def shard_refs(root: str) -> dict:
+    """The model_shard cells run unsharded on the card from the same seed
+    (the same two steps; the prefill's logits through the plain attention
+    in float32 and in bfloat16), written under ``root`` for the ranks, in
+    a process of its own (its memory goes with it): -> each cell's losses
+    and the prefill's plain-attention RMS distance."""
+    from repro_torch.core import tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {}
+    for name in SHARD_CELLS:
+        torch.cuda.empty_cache()
+        cell, *_ = shard_cell_program(name, dev, ())
+        if name == "prefill":
+            params, toks = cell.args
+            ref32 = cell.meta["make_step"]("torch", attn_impl="flash",
+                                           compute_dtype=torch.float32)(params, toks).float()
+            plain16 = cell.meta["make_step"]("torch", attn_impl="flash")(params, toks)
+            out[name] = {"plain_rms": float(
+                torch.sqrt(torch.mean((plain16.float() - ref32) ** 2)))}
+            torch.save(ref32.cpu(), os.path.join(root, f"{name}.pt"))
+            del params, toks, ref32, plain16
+        else:
+            if name in SHARD_F32_LIMITS:  # the first step's grads, at the drawn weights
+                def keep(grads):
+                    torch.save({k: v.detach().cpu() for k, v in tree.paths(grads)},
+                               os.path.join(root, f"{name}_grads.pt"))
+                    out[name] = {"grad_max": {k: float(v.abs().max())
+                                              for k, v in tree.paths(grads)}}
+                    cell.meta["grad_hook"]["fn"] = None
+                    return grads
+                cell.meta["grad_hook"]["fn"] = keep
+            losses = [float(cell.step_fn(*cell.args)[1]["loss"]) for _ in range(2)]
+            torch.save({k: v.detach().cpu() for k, v in tree.paths(cell.args[0]["params"])},
+                       os.path.join(root, f"{name}.pt"))
+            out.setdefault(name, {})["losses"] = losses
+        del cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def own_table_rows(state: dict, dev) -> dict:
+    """The sharded two-tower state with each meta leaf made on this rank:
+    its rows of each table drawn (``tt_table_rows``), zeros for their
+    moments."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import tree
+
+    leaves = []
+    for path, d in tree.paths(state):
+        if isinstance(d, DTensor) and d.to_local().is_meta:
+            rows = local_slices(d)[0]
+            local = (tt_table_rows(0 if path.startswith("params/user/") else 1,
+                                   rows.start, rows.stop, dev)
+                     if path.startswith("params/") else
+                     torch.zeros(d.to_local().shape, dtype=d.dtype, device=dev))
+            d = DTensor.from_local(local, d.device_mesh, d.placements, run_check=False,
+                                   shape=d.shape, stride=d.stride()
+                                   ).requires_grad_(d.requires_grad)
+        leaves.append(d)
+    return tree.unflatten(state, leaves)
+
+
+def local_slices(d) -> tuple:
+    """The global index slices of this rank's shard of DTensor ``d``."""
+    from repro_torch.models import sharding_utils as su
+
+    local = d.to_local()
+    return tuple(slice(su.local_offset(d, i), su.local_offset(d, i) + local.shape[i])
+                 if any(p.is_shard(i) for p in d.placements) else slice(None)
+                 for i in range(d.ndim))
+
+
+def hold_shard(d, ref_cpu, rtol: float, atol: float, before=None,
+               chunk: int = 1 << 24) -> dict:
+    """This rank's shard of ``d`` against the same slice of the unsharded
+    ``ref_cpu``, in row chunks: the largest |difference|, the elements
+    outside ``atol + rtol*|ref|``, the squared difference and the squared
+    reference summed, and (given the shard ``before`` the steps) the
+    reference's squared change summed."""
+    local = d.to_local().detach()
+    width = local.shape[-1] if local.ndim else 1
+    local = local.reshape(-1, width)  # rows of the leading dims, in chunks
+    ref = ref_cpu[local_slices(d)].reshape(-1, width)
+    if before is not None:
+        before = before.reshape(-1, width)
+    rows = max(chunk // width, 1)
+    worst, bad, sq, sq_ref, sq_step = 0.0, 0, 0.0, 0.0, 0.0
+    for i in range(0, local.shape[0], rows):
+        a = local[i:i + rows].float()
+        b = ref[i:i + rows].to(a.device).float()
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        bad += int((diff > atol + rtol * b.abs()).sum())
+        sq += float((diff.double() ** 2).sum())
+        sq_ref += float((b.double() ** 2).sum())
+        if before is not None:
+            sq_step += float(((b - before[i:i + rows].float()).double() ** 2).sum())
+    return {"max_abs": worst, "bad": bad, "sq": sq, "sq_ref": sq_ref, "sq_step": sq_step,
+            "n": local.numel()}
+
+
+def model_shard_rank(rank_mesh, root: str, grad_max: dict) -> dict:
+    """One rank of the model_shard phase, in its own process: each cell
+    built on a (2, 2) ("data", "model") DeviceMesh of the 4 ranks (each rank
+    draws the full cell from the seed in turn and keeps its shards), a
+    warm-up step and a timed step (CUDA events; kernel launches, collectives
+    and the flops counted), then the parameters (or the prefill's logits)
+    held shard by shard against the unsharded run's files under ``root``."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_mod.use_c10d_all_gather()
+    dm = mesh_mod.make_mesh_like(SHARD_MESH, SHARD_AXES, device_type="cuda")
+    out = {"rank": rank_mesh.rank, "coord": dm.get_coordinate(), "cells": {}}
+    for name in SHARD_CELLS:
+        out["cells"][name] = model_shard_cell(rank_mesh, dm, name, root,
+                                              grad_max.get(name, {}))
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_shard_cell(rank_mesh, dm, name: str, root: str, grad_max: dict) -> dict:
+    """One cell on one rank of the model_shard phase: its record.  The float32
+    cells' warm-up grads (at the drawn weights) are held shard by shard
+    against the unsharded run's within rtol 1e-4 and 1e-6 of each leaf's
+    max|grad|."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import tree
+    from repro_torch.train import optimizer as opt_mod
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as mesh_mod
+
+    dev, rank = rank_mesh.device, rank_mesh.rank
+    t0 = time.perf_counter()
+    cell, arch, shape, kernel = shard_cell_program(name, dev, mesh_mod.data_axes(dm),
+                                                   own_rows=True)
+    sharded = steps.shard_cell(cell, steps.attach_shardings(cell, dm, arch, shape), dm)
+    del cell
+    if name == "two_tower":
+        sharded.args = (own_table_rows(sharded.args[0], dev), sharded.args[1])
+    gc.collect()  # the drawn cell (its step's closures hold it in a cycle)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    say("model_shard_build", cell=name, rank=rank, build_s=f"{time.perf_counter() - t0:.2f}",
+        allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+        card_free_gb=f"{torch.cuda.mem_get_info()[0] / 1e9:.2f}")
+    tdist.barrier()
+    rec = {"argument_bytes": dryrun.arg_bytes(sharded.args)}
+    if name in SHARD_F32_LIMITS:
+        def hold(grads):  # the warm-up step's grads, placed as their parameters
+            params = sharded.args[0]["params"]
+            grads = tree.tree_map(opt_mod.follow, grads, params)
+            ref = torch.load(os.path.join(root, f"{name}_grads.pt"), mmap=True)
+            rec["grads"] = {k_: hold_shard(g_, ref[k_], 1e-4, 1e-6 * grad_max[k_])
+                            for k_, g_ in tree.paths(grads)}
+            sharded.meta["grad_hook"]["fn"] = None
+            return grads
+        sharded.meta["grad_hook"]["fn"] = hold
+    before = ({k_: v_.to_local().detach().clone()
+               for k_, v_ in tree.paths(sharded.args[0]["params"])}
+              if name != "prefill" else {})
+    torch.cuda.reset_peak_memory_stats()
+    sharded.step_fn(*sharded.args)  # warm-up
+    phase = dict.fromkeys(KERNELS, 0)
+    ev = event_pair()
+    tdist.barrier()
+    with counted(KERNELS, phase), dryrun.LocalCounter() as counter:
+        ev[0].record()
+        got = sharded.step_fn(*sharded.args)
+        ev[1].record()
+    torch.cuda.synchronize()
+    rec.update(step_ms=ev[0].elapsed_time(ev[1]),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches={k_: v_ for k_, v_ in phase.items() if v_},
+               collectives=counter.collectives(), flops=counter.flops)
+    if kernel is not None and phase[kernel] == 0:
+        raise AssertionError(f"model_shard/{name} rank {rank}: {kernel} never launched")
+    ref = torch.load(os.path.join(root, f"{name}.pt"), mmap=True)
+    if name == "prefill":
+        rec["logits"] = hold_shard(got, ref, 0.0, float("inf"))
+        del got
+        # the same sharded model through the plain attention: the bound's twin
+        plain = sharded.meta["make_step"]("torch", attn_impl="flash")(*sharded.args)
+        rec["logits_plain"] = hold_shard(plain, ref, 0.0, float("inf"))
+    else:
+        rec["loss"] = float(got[1]["loss"])
+        tol = (1e-5, 1e-6) if name != "train" else (0.0, float("inf"))
+        rec["params"] = {k_: hold_shard(v_, ref[k_], *tol, before=before[k_])
+                         for k_, v_ in tree.paths(got[0]["params"])}
+    return rec
+
+
+def model_shard_dryrun(which: str, root: str) -> list:
+    """The dry run in its own process (a fake process group: each call of
+    the phase gets a fresh one).  ``"mesh"``: the phase's cells on a fake
+    (2, 2) mesh of fake CUDA tensors -> their records.  ``"production"``:
+    h2o-danube-1.8b x train_4k at cost2/cost4/opt1/opt2 and mace x
+    ogb_products at chunk2/chunk4 on the 16x16 mesh -> the records' trace
+    seconds and the two cells' roofline terms (launch.roofline), the records
+    written under ``root``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun, roofline, steps
+    from repro_torch.launch import mesh as mesh_mod
+
+    if which == "mesh":
+        dryrun.init_fake_world(int(np.prod(SHARD_MESH)))
+        mesh = mesh_mod.make_mesh_like(SHARD_MESH, SHARD_AXES, device_type="cuda")
+        recs = []
+        for name in SHARD_CELLS:
+            with FakeTensorMode():
+                cell, arch, shape, _ = shard_cell_program(name, torch.device("cuda"),
+                                                          mesh_mod.data_axes(mesh))
+                recs.append(dryrun.step_record(
+                    cell, steps.attach_shardings(cell, mesh, arch, shape), mesh))
+        return recs
+    dryrun.init_fake_world(256)
+    mesh = mesh_mod.make_production_mesh(device_type="cuda")
+    rows = []
+    roofline.RESULTS_DIR = root
+    for arch, shape, variants in SHARD_ROOFLINE:
+        lc = None
+        for v in variants:
+            rec = dryrun.run_cell(arch, shape, mesh=mesh, variant=v)
+            if rec["status"] != "ok":
+                raise AssertionError(f"model_shard/dryrun {arch} {shape} {v}: "
+                                     f"{rec.get('error')}")
+            with open(dryrun.result_path(arch, shape, v, False, root=root), "w") as f:
+                json.dump(rec, f)
+            lc = lc or (rec["loop_correction"] if not v.startswith("opt") else None)
+            rows.append({"arch": arch, "shape": shape, "variant": v,
+                         "trace_s": rec["trace_s"],
+                         "peak_gb": f"{rec['memory']['peak_bytes'] / 1e9:.3f}",
+                         "flops": f"{rec['cost']['flops']:.4e}"})
+        step = roofline.costs_from(arch, shape, lc)
+        rows.append({"arch": arch, "shape": shape, **roofline.terms(arch, shape, step)})
+    return rows
+
+
+def model_shard_phase(launches: dict, times: dict, dev, card: str) -> None:
+    """The model_shard phase (see the module docstring)."""
+    import torch.multiprocessing as tmp
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"chip_smoke_shard_{os.getpid()}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()  # the card is the spawned processes'
+    p0 = time.perf_counter()
+    # the dry runs and the unsharded runs, each in a process of its own
+    pool = tmp.get_context("spawn").Pool(3, maxtasksperchild=1)
+    try:
+        os.makedirs(os.path.join(root, "dryrun"))
+        dry = {w_: pool.apply_async(model_shard_dryrun, (w_, os.path.join(root, "dryrun")))
+               for w_ in ("mesh", "production")}
+        refs = pool.apply_async(shard_refs, (root,)).get(timeout=SHARD_TIMEOUT_S)
+        ref_s = time.perf_counter() - p0
+        free, total = torch.cuda.mem_get_info()
+        say("model_shard_refs", card=f"'{card}'", refs_s=f"{ref_s:.1f}",
+            parent_allocated_gb=f"{torch.cuda.memory_allocated() / 1e9:.3f}",
+            parent_reserved_gb=f"{torch.cuda.memory_reserved() / 1e9:.3f}",
+            card_free_gb=f"{free / 1e9:.2f}", card_total_bytes=total)
+        dry_mesh = dry["mesh"].get(timeout=SHARD_TIMEOUT_S)
+        t0 = time.perf_counter()
+        grad_max = {k_: v_["grad_max"] for k_, v_ in refs.items() if "grad_max" in v_}
+        ranks = mesh_mod.run_ranks(model_shard_rank, int(np.prod(SHARD_MESH)),
+                                   args=(root, grad_max),
+                                   device=f"cuda:{torch.cuda.current_device()}",
+                                   timeout=SHARD_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        prod = dry["production"].get(timeout=SHARD_TIMEOUT_S)
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(root, ignore_errors=True)
+
+    failed = []
+    for i_, name in enumerate(SHARD_CELLS):
+        dr = dry_mesh[i_]
+        recs = [r_["cells"][name] for r_ in sorted(ranks, key=lambda x: x["rank"])]
+        line = {"cell": name, "card": f"'{card}'",
+                "transport": "'4 ranks on one H100 over gloo, not a multi-card figure'"}
+        for r_, rec in enumerate(recs):
+            for k_, v_ in rec["launches"].items():
+                launches[k_] += v_
+            what = f"model_shard/{name} rank {r_}"
+            if rec["argument_bytes"] != dr["memory"]["argument_bytes"]:
+                failed.append(f"{what}: argument bytes {rec['argument_bytes']} vs the dry "
+                              f"run's {dr['memory']['argument_bytes']}")
+            if rec["collectives"]["total_bytes"] != dr["collectives"]["total_bytes"]:
+                failed.append(f"{what}: collectives {rec['collectives']} vs the dry run's "
+                              f"{dr['collectives']}")
+            if name != "prefill":
+                # bfloat16 compute (train): the loss within 2^-7; float32: 1e-4
+                want, rtol = refs[name]["losses"][1], 2.0**-7 if name == "train" else 1e-4
+                if abs(rec["loss"] - want) > rtol * abs(want):
+                    failed.append(f"{what}: loss {rec['loss']} vs {want} (rtol {rtol})")
+            tag = f"r{r_}"
+            line[f"{tag}_step_ms"] = f"{rec['step_ms']:.2f}"
+            line[f"{tag}_peak_gb"] = f"{rec['peak_gb']:.3f}"
+            line[f"{tag}_coll_bytes"] = "/".join(
+                f"{k_}={v_}" for k_, v_ in sorted(rec["collectives"]["total_bytes"].items()))
+            line[f"{tag}_coll_count"] = "/".join(
+                f"{k_}={v_}" for k_, v_ in sorted(rec["collectives"]["count"].items()))
+            line[f"{tag}_launches"] = "/".join(f"{k_}={v_}" for k_, v_ in rec["launches"].items()) or "none"
+        line["dry_peak_gb"] = f"{dr['memory']['peak_bytes'] / 1e9:.3f}"
+        line["argument_bytes"] = dr["memory"]["argument_bytes"]
+        line["flops_per_rank"] = f"{dr['cost']['flops']:.4e}"
+
+        def leaf_sums(key):
+            # each leaf's sums over the ranks' shards (a leaf replicated over
+            # an axis counts each element once a replica, on both sides)
+            out = {}
+            for rec in recs:
+                for k_, v_ in rec[key].items():
+                    acc = out.setdefault(k_, dict.fromkeys(v_, 0.0))
+                    for f_, x_ in v_.items():
+                        acc[f_] = max(acc[f_], x_) if f_ == "max_abs" else acc[f_] + x_
+            return out
+
+        if name == "prefill":
+            # ROADMAP.md §3's bf16-model bound on the sharded model: its
+            # logits' RMS distance from the f32 model (unsharded, plain
+            # attention) at most LM_BF16_RMS_RATIO x that of the unsharded
+            # bf16 model through the plain attention, and (the kernel alone)
+            # of the same sharded model through the plain attention.  The
+            # data-rank-0 ranks' shards: the batch of 1 is replicated over data
+            def rms_of(key):
+                shards = [r_["cells"][name][key] for r_ in ranks if r_["coord"][0] == 0]
+                return float(np.sqrt(sum(s_["sq"] for s_ in shards)
+                                     / sum(s_["n"] for s_ in shards)))
+
+            rms, plain, unsharded = rms_of("logits"), rms_of("logits_plain"), refs[name]["plain_rms"]
+            line.update(rms_vs_f32=f"{rms:.4e}", unsharded_plain_rms_vs_f32=f"{unsharded:.4e}",
+                        ratio=f"{rms / unsharded:.4f}", sharded_plain_rms_vs_f32=f"{plain:.4e}",
+                        ratio_vs_sharded_plain=f"{rms / plain:.4f}")
+            for base, what in ((unsharded, "the unsharded"), (plain, "the same sharded")):
+                if not rms <= LM_BF16_RMS_RATIO * base:
+                    failed.append(f"model_shard/prefill: logits' RMS distance {rms} from the f32 "
+                                  f"model exceeds {LM_BF16_RMS_RATIO} x {base}, {what} model's "
+                                  f"through the plain attention")
+        else:
+            line["loss"] = f"{recs[0]['loss']:.6f}"
+            line["ref_loss"] = f"{refs[name]['losses'][1]:.6f}"
+            params = leaf_sums("params")
+            line["param_max_abs_diff"] = f"{max(v_['max_abs'] for v_ in params.values()):.3e}"
+            # each leaf's RMS distance from the unsharded run over its RMS
+            # change in the two steps
+            step = {k_: np.sqrt(v_["sq"] / max(v_["sq_step"], 1e-300)) for k_, v_ in params.items()}
+            line["param_rms_diff_over_change"] = f"{max(step.values()):.4e}"
+            if name == "train":
+                far = {k_: v_ for k_, v_ in step.items() if v_ > SHARD_BF16_STEP_RATIO}
+                if far:
+                    failed.append(f"model_shard/train: leaves beyond {SHARD_BF16_STEP_RATIO} of "
+                                  f"their change: {far}")
+        if name in SHARD_F32_LIMITS:
+            lim = SHARD_F32_LIMITS[name]
+            grads = leaf_sums("grads")
+            g_rms = {k_: np.sqrt(v_["sq"] / v_["sq_ref"]) for k_, v_ in grads.items()
+                     if v_["sq_ref"]}
+            g_share = sum(v_["bad"] for v_ in grads.values()) / sum(v_["n"] for v_ in grads.values())
+            p_share = sum(v_["bad"] for v_ in params.values()) / sum(v_["n"] for v_ in params.values())
+            line.update({
+                "grad_max_abs_diff": f"{max(v_['max_abs'] for v_ in grads.values()):.3e}",
+                "grad_rel_rms_diff": f"{max(g_rms.values()):.4e}",
+                "grads_beyond_1e-4_1e-6max": int(sum(v_["bad"] for v_ in grads.values())),
+                "grads_checked": int(sum(v_["n"] for v_ in grads.values())),
+                "grad_share_beyond": f"{g_share:.4e}",
+                "params_beyond_1e-5_1e-6": int(sum(v_["bad"] for v_ in params.values())),
+                "params_checked": int(sum(v_["n"] for v_ in params.values())),
+                "param_share_beyond": f"{p_share:.4e}",
+                "limits": "/".join(f"{k_}={v_:g}" for k_, v_ in lim.items())})
+            far = {k_: v_ for k_, v_ in g_rms.items() if v_ > lim["grad_rms"]}
+            if far:
+                failed.append(f"model_shard/{name}: grads' RMS distance beyond "
+                              f"{lim['grad_rms']} of their RMS: {far}")
+            if g_share > lim["grad_share"]:
+                failed.append(f"model_shard/{name}: {g_share:.4e} of the grad elements beyond "
+                              f"rtol 1e-4, atol 1e-6 max|grad| (limit {lim['grad_share']})")
+            if p_share > lim["param_share"]:
+                failed.append(f"model_shard/{name}: {p_share:.4e} of the parameters beyond "
+                              f"rtol 1e-5, atol 1e-6 (limit {lim['param_share']})")
+            far = {k_: v_ for k_, v_ in step.items() if v_ > lim["param_step"]}
+            if far:
+                failed.append(f"model_shard/{name}: parameters' RMS distance beyond "
+                              f"{lim['param_step']} of their change: {far}")
+        times[f"model_shard_{name}_step_ms"] = max(rec["step_ms"] for rec in recs)
+        say("model_shard", **line)
+    for r_ in prod:
+        if "compute_s" in r_:
+            say("model_shard_roofline", card=f"'{card}'", mesh="16x16",
+                modelled="'H100 SXM data-sheet constants'", arch=r_["arch"], shape=r_["shape"],
+                compute_s=f"{r_['compute_s']:.4e}", memory_s=f"{r_['memory_s']:.4e}",
+                collective_s=f"{r_['collective_s']:.4e}", dominant=r_["dominant"],
+                model_flops=f"{r_['model_flops']:.4e}", useful_ratio=f"{r_['useful_ratio']:.4f}",
+                roofline_fraction=f"{r_['roofline_fraction']:.4f}")
+        else:
+            say("model_shard_dryrun", mesh="16x16", **{k_: v_ for k_, v_ in r_.items()})
+    say("model_shard_phase", card=f"'{card}'", refs_s=f"{ref_s:.1f}", ranks_s=f"{ranks_s:.1f}",
+        phase_s=f"{time.perf_counter() - p0:.1f}")
+    if failed:
+        raise AssertionError("model_shard: " + "; ".join(failed))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -2816,8 +3392,15 @@ def main() -> None:
     times = {}
     phase_s = {}
 
-    # 1b. gnn_train (the GNN family trained at full width) first, on an
-    # empty card: GraphCast's float32 activations take ~56 GB ------------
+    # 1a. model_shard (model sharding over a DeviceMesh, 4 ranks on the one
+    # card, and the dry run) first: all its work is in processes of its own,
+    # which need the card empty of this one's cached memory ---------------
+    p0 = time.perf_counter()
+    model_shard_phase(launches, times, dev, smi)
+    phase_s["model_shard_s"] = time.perf_counter() - p0
+
+    # 1b. gnn_train (the GNN family trained at full width) second, on the
+    # emptied card: GraphCast's float32 activations take ~56 GB ------------
     p0 = time.perf_counter()
     gnn_train_phase(launches, times, dev, smi)
     phase_s["gnn_train_s"] = time.perf_counter() - p0
@@ -3538,7 +4121,7 @@ def main() -> None:
     torch.cuda.synchronize()
     prefill_event_ms = whole[0].elapsed_time(whole[1])
     attn_event_ms = sum(a.elapsed_time(b_) for a, b_ in fa_events)
-    pairs = visible_pairs(s_len, s_len, True, win)
+    pairs = fa_kernel.visible_pairs(s_len, s_len, True, win)
     matmul_params = lm_cfg.n_params() - lm_cfg.vocab * lm_cfg.d_model - (2 * n_layers + 1) * lm_cfg.d_model
     proj_flop = 2 * matmul_params * PREFILL_BATCH * s_len
     attn_flop = n_layers * PREFILL_BATCH * hq * 4 * dh * pairs

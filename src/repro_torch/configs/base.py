@@ -3,10 +3,9 @@
 
 Each arch module defines FULL (exact assigned config) and SMOKE (reduced,
 CPU one-step testable) and registers itself here.  Shapes are per family
-and carried over verbatim.  The port registers the archs whose models it
-has: the four GNNs, h2o-danube-1.8b and two-tower-retrieval; ``repro``'s
-four large-LM configs are still to be ported (ROADMAP.md §1 item 4), so
-``all_cells`` lists 6 × 4 cells where ``repro`` lists 40.
+and carried over verbatim.  The port registers all of ``repro``'s ten
+archs (the four GNNs, the five LMs and two-tower-retrieval), so
+``all_cells`` lists ``repro``'s 40 cells.
 """
 from __future__ import annotations
 

@@ -63,7 +63,7 @@ rank (multi-controller):
     step manifest local mode writes.
 
 Model sharding (DTensor over a ``DeviceMesh``) is not this module's: it is
-``ROADMAP.md`` §1 item 6.
+``models.sharding_utils`` and ``launch.shardings``.
 """
 from __future__ import annotations
 

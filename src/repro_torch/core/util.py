@@ -41,9 +41,17 @@ def resolve_backend(backend: str, device: torch.device) -> str:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "auto":
         return "cuda" if device.type == "cuda" else "torch"
-    if backend == "cuda" and device.type != "cuda":
+    if backend == "cuda" and device.type != "cuda" and not _fake_mode_active():
         raise ValueError(f"backend 'cuda' needs CUDA tensors, got {device}")
     return backend
+
+
+def _fake_mode_active() -> bool:
+    """Whether a ``FakeTensorMode`` is active: the dry run traces the
+    kernels' custom ops through their fake bodies, on any device."""
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
 
 
 def host(x) -> np.ndarray:

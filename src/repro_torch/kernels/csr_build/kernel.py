@@ -14,11 +14,14 @@ x edge-tile compares); the TPU's pad-to-128 contract is not carried over.
 
 Each wrapper launches its kernel for CUDA tensors and uses its plain
 PyTorch version (``*_torch``) only for CPU tensors; its ``launches``
-attribute counts kernel launches.
+attribute counts kernel launches.  ``degree_offsets_op`` is
+``degree_offsets`` as a ``torch.library`` custom op, the form the GNN
+segment counts call.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 
@@ -92,3 +95,20 @@ def degree_offsets(src_s: torch.Tensor, n: int) -> torch.Tensor:
 
 
 degree_offsets.launches = 0
+
+
+@torch.library.custom_op("repro_torch::degree_offsets", mutates_args=())
+def degree_offsets_op(src_s: torch.Tensor, n: int) -> torch.Tensor:
+    """``degree_offsets`` as a custom op (see ``edge_segment_runs_op``):
+    its fake body gives [n + 1] int32, its flop formula one step a source."""
+    return degree_offsets(src_s, n)
+
+
+@degree_offsets_op.register_fake
+def _(src_s, n):
+    return src_s.new_empty((n + 1,), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.degree_offsets)
+def _(src_shape, n, out_shape=None, **kwargs) -> int:
+    return src_shape[0]

@@ -17,10 +17,17 @@ run through it).
 The wrapper launches the CUDA kernels for CUDA tensors and uses the plain
 version only for CPU tensors; its ``launches`` attribute counts its
 launches (one a call: both kernels).
+
+``edge_segment_runs_op`` is the wrapper as a ``torch.library`` custom op
+(``repro_torch::edge_segment_runs``), the form the model sites call: its
+body is the wrapper (the ``ctypes`` launch), its fake body gives the
+output's shape to fake tensors (the dry run), and its flop formula is the
+kernel's operation count, E·D adds (``chip_smoke.py``'s bound).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from ..slot_walk.kernel import EB, tile_ranks  # 128 edges a tile
@@ -139,3 +146,20 @@ def edge_segment_runs(rows: torch.Tensor, vals: torch.Tensor,
 
 
 edge_segment_runs.launches = 0
+
+
+@torch.library.custom_op("repro_torch::edge_segment_runs", mutates_args=())
+def edge_segment_runs_op(rows: torch.Tensor, vals: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """``edge_segment_runs`` as a custom op."""
+    return edge_segment_runs(rows, vals, num_segments)
+
+
+@edge_segment_runs_op.register_fake
+def _(rows, vals, num_segments):
+    return vals.new_empty((num_segments, vals.shape[1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.edge_segment_runs)
+def _(rows_shape, vals_shape, num_segments, out_shape=None, **kwargs) -> int:
+    return vals_shape[0] * vals_shape[1]

@@ -25,7 +25,7 @@ def edge_segment_sum(rows: torch.Tensor, vals: torch.Tensor, *, num_segments: in
     """Segment sum of row-sorted edges: rows [E] ascending, vals [E, D] ->
     [num_segments, D] f32.  Rows outside [0, num_segments) are dropped."""
     if util.resolve_backend(backend, vals.device) == "cuda":
-        return _kernel.edge_segment_runs(rows, vals, num_segments)
+        return _kernel.edge_segment_runs_op(rows, vals, int(num_segments))
     return _kernel.edge_segment_sum_torch(rows, vals, num_segments)
 
 

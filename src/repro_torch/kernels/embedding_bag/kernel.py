@@ -7,11 +7,16 @@ grid that DMAs one table row a step).
 
 The wrapper launches the CUDA kernel for CUDA tensors and uses its plain
 PyTorch version (``embedding_bag_torch``) only for CPU tensors; its
-``launches`` attribute counts kernel launches.
+``launches`` attribute counts kernel launches.  ``embedding_bag_op`` is the
+wrapper as a ``torch.library`` custom op (``repro_torch::embedding_bag``),
+the form the two-tower model calls: its fake body gives [B, D] float32 to
+fake tensors, its flop formula is 2·B·K·D (every slot valid: the count
+``chip_smoke.py`` takes from its data, which a shape cannot see).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 
@@ -91,3 +96,20 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, weights: torch.Ten
 
 
 embedding_bag.launches = 0
+
+
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=())
+def embedding_bag_op(table: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor,
+                     combine: str) -> torch.Tensor:
+    """``embedding_bag`` as a custom op."""
+    return embedding_bag(table, indices, weights, combine)
+
+
+@embedding_bag_op.register_fake
+def _(table, indices, weights, combine):
+    return table.new_empty((indices.shape[0], table.shape[1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag)
+def _(table_shape, indices_shape, weights_shape, combine, out_shape=None, **kwargs) -> int:
+    return 2 * indices_shape[0] * indices_shape[1] * table_shape[1]

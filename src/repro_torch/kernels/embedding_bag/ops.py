@@ -55,7 +55,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, weights=None, *,
 
 
 def _bag(table, indices, weights, combine, backend):
-    bag = _kernel.embedding_bag if backend == "cuda" else _kernel.embedding_bag_torch
+    bag = _kernel.embedding_bag_op if backend == "cuda" else _kernel.embedding_bag_torch
     return bag(table, indices, weights, combine)
 
 

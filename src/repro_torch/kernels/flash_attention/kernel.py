@@ -17,11 +17,17 @@ their own tile sizes and take any Sq, Skv and D <= 128; the op's
 The wrapper launches the CUDA kernel for CUDA tensors and uses its plain
 PyTorch version (``flash_attention_torch``) only for CPU tensors; its
 ``launches`` attribute counts kernel launches, and ``path_launches`` counts
-them by kernel (``"wgmma"`` / ``"simt"``).
+them by kernel (``"wgmma"`` / ``"simt"``).  ``flash_attention_op`` is the
+wrapper as a ``torch.library`` custom op (``repro_torch::flash_attention``),
+the form the attention entry point calls: its fake body gives q's shape
+and type to fake tensors, its flop formula is ``chip_smoke.py``'s count,
+4·B·Hq·D a visible (query, key) pair.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 
@@ -120,3 +126,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.path_launches = dict.fromkeys(PATHS, 0)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                       window: int) -> torch.Tensor:
+    """``flash_attention`` as a custom op."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs attention computes: key j is visible to query i
+    when j <= i (causal) and j > i - window (window > 0)."""
+    q = np.arange(sq)
+    hi = np.minimum(q + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, out_shape=None, **kwargs) -> int:
+    b, hq, sq, d = q_shape
+    return b * hq * 4 * d * visible_pairs(sq, k_shape[2], causal, window)

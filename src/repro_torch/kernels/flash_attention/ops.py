@@ -28,8 +28,10 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0, backend: str = "
         raise ValueError(f"Sq={sq} and Skv={skv} must be multiples of the blocks "
                          f"min(block_q, Sq)={bq} and min(block_k, Skv)={bk}")
     backend = util.resolve_backend(backend, q.device)
-    fa = _kernel.flash_attention if backend == "cuda" else _kernel.flash_attention_torch
-    return fa(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if backend == "cuda":
+        return _kernel.flash_attention_op(q, k, v, bool(causal), int(window))
+    return _kernel.flash_attention_torch(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k, v, kv_len, *, window: int = 0):

@@ -26,7 +26,17 @@ The transport follows from the topology (:func:`transport`): ``"nccl"``
 when each rank has its own card, ``"gloo"`` when ranks share a card or run
 on the CPU.  Nothing retries one on the failure of the other.
 
-``make_production_mesh`` / ``make_mesh_like`` (TPU pods) are not ported.
+Model sharding runs on an N-D ``torch.distributed`` ``DeviceMesh`` instead
+(``models.sharding_utils``, ``launch.shardings``):
+
+* :func:`make_production_mesh` — ``repro``'s 16×16 ``("data", "model")``
+  pod, or 2×16×16 ``("pod", "data", "model")``;
+* :func:`make_mesh_like` — any (shape, axes) over the process group this
+  process joined: the 4 real ranks of ``run_ranks`` as ``(2, 2)``, or a
+  fake process group of 256 / 512 ranks in the dry run
+  (``launch.dryrun``).
+
+:func:`data_axes` reads either kind of mesh.
 """
 from __future__ import annotations
 
@@ -242,8 +252,75 @@ class Channel:
 
 
 def data_axes(mesh) -> tuple:
-    """Axes that carry the batch/vertex dimension."""
-    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    """Axes that carry the batch/vertex dimension (pod folds into data): of
+    a rank :class:`Mesh` (``axis_names``) or a ``DeviceMesh`` /
+    ``MeshShape`` (``mesh_dim_names``)."""
+    names = getattr(mesh, "mesh_dim_names", None) or getattr(mesh, "axis_names", ())
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+_C10D_LIBS: list = []
+
+
+def use_c10d_all_gather() -> None:
+    """Route the functional all-gather (``_c10d_functional.
+    all_gather_into_tensor``, which DTensor issues) of CUDA tensors
+    through ``torch.distributed.all_gather_into_tensor``.
+
+    On gloo, the functional all-gather of a CUDA tensor kills the process
+    (SIGSEGV, torch 2.11 on the H100), while the c10d call gathers the same
+    bytes over the same group; the ranks that share one card over gloo
+    (``chip_smoke.py``'s ``model_shard`` phase) install this once.  The op
+    and its operands are unchanged, so the dry run's counters see the same
+    collective; the call completes before it returns, so DTensor's wait is
+    a no-op.
+    """
+    if _C10D_LIBS:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(),
+                                    group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", gather, "CUDA")
+    _C10D_LIBS.append(lib)
+
+
+def production_shape(*, multi_pod: bool = False) -> tuple:
+    """(shape, axes) of ``repro``'s production mesh: 16×16 = 256 chips a
+    pod; multi-pod adds a leading 2-pod axis."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_mesh_like(shape: tuple, axes: tuple, *, device_type: str = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the process group
+    this process joined, whose world size must be ``prod(shape)``.
+    ``device_type`` defaults to ``"cuda"`` where a card is, else ``"cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh_like: join a process group first")
+    n = int(np.prod(shape))
+    if dist.get_world_size() != n:
+        raise ValueError(f"make_mesh_like: mesh {tuple(shape)} needs {n} ranks, the "
+                         f"process group has {dist.get_world_size()}")
+    if len(axes) != len(shape):
+        raise ValueError(f"make_mesh_like: {len(axes)} axis names for {len(shape)} dims")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = None):
+    """``repro``'s production mesh (:func:`production_shape`) over the
+    process group this process joined (256 or 512 ranks)."""
+    return make_mesh_like(*production_shape(multi_pod=multi_pod), device_type=device_type)
 
 
 def transport(n: int, device) -> str:

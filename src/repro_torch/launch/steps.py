@@ -9,23 +9,34 @@ train / serve / retrieval.
     for the GNN and recsys cells; the LM cells draw their tokens from
     ``np.random.default_rng(1)`` (``repro`` uses ``jax.random`` there, which
     the port cannot replay: tests hand ``repro``'s tokens over);
-  * ``reduced=False`` — the FULL config (or its ``variant``) on concrete
-    tensors at the shape's real size on ``device``, drawn from a
-    ``torch.Generator`` seeded with ``seed`` (``repro`` builds abstract
-    shapes here, for its compile-only dry run, which the port does not
-    have).
+  * ``reduced=False`` — the FULL config (or its ``variant``) at the
+    shape's real size on ``device``, drawn from a ``torch.Generator``
+    seeded with ``seed``: concrete tensors, or, under a ``FakeTensorMode``
+    (the dry run, ``launch.dryrun``), fakes of the same shapes and types
+    that allocate nothing (``repro``'s ``_sds_like`` / ``eval_shape``); the
+    one array built from data, the sampled cells' CSR, is then an empty
+    fake of its shape.
 
-``variant`` takes ``repro``'s ``"full"`` and, for the LM family, its
+``variant`` takes ``repro``'s ``"full"``; for the LM family its
 ``"cost1"`` / ``"cost2"`` / ``"cost4"`` (1 / 2 / 4 layers at full width,
-no grad accumulation).  ``repro``'s full-size rules are kept: bfloat16
-Adam moments for every full LM train, ``accum = 16`` for ``"full"``, a
-microbatch of ``max(global_batch // 16, 1)`` and tokens ``[accum, ub,
-seq]``; GNN node and edge counts padded to 512, GCN's ``d_in`` set to the
-shape's feature width, GraphCast's ``remat`` and ``bf16`` and MACE's
-``edge_chunks=64`` above 2M edges.  The GNN ``chunkN`` variants wait for
-``launch/roofline.py``, and ``attach_shardings`` for ``launch/shardings.py``
-(ROADMAP.md §1 item 6); ``donate`` belongs to XLA.  A step updates its
-state's tensors in place.
+no grad accumulation), and for the GNN family its ``"chunk2"`` /
+``"chunk4"`` (MACE's edge loop in 2 / 4 chunks; ``loop_correction``
+records them as ``repro`` does, for ``launch.roofline``).  ``repro``'s
+full-size rules are kept: bfloat16 Adam moments for every full LM train,
+``accum = 16`` for ``"full"``, a microbatch of ``max(global_batch // 16,
+1)`` and tokens ``[accum, ub, seq]``; GNN node and edge counts padded to
+512, GCN's ``d_in`` set to the shape's feature width, GraphCast's
+``remat`` and ``bf16`` and MACE's ``edge_chunks=64`` above 2M edges.
+
+``data_axes`` applies ``repro``'s activation sharding axes to the config
+(``steps.py:490-497``: LM ``batch_axes`` and ``tp_axis="model"``, GNN
+``shard_axes`` over the data axes and ``"model"``, recsys ``shard_axes``).
+``repro`` applies them to full-size cells only; the port applies them to a
+``reduced`` cell too, because the CPU tests are the only place where a
+reduced cell runs on a mesh.  :func:`attach_shardings` gives the
+placements of a cell's args on a mesh (``launch.shardings``), and
+:func:`shard_cell` distributes them and runs the step under the mesh.
+``donate`` belongs to XLA.  A step updates its state's tensors in place.
 """
 from __future__ import annotations
 
@@ -45,11 +56,13 @@ from ..models.gnn import gcn as gcn_mod
 from ..models.gnn import graphcast as graphcast_mod
 from ..models.gnn import mace as mace_mod
 from ..models.gnn import schnet as schnet_mod
+from ..models import sharding_utils as su
 from ..models.recsys import two_tower as tt_mod
 from ..models.transformer import model as tmodel
 from ..sampling import neighbor
 from ..train import loop as train_loop
 from ..train import optimizer as opt_mod
+from . import shardings as shard_mod
 
 GNN_MODULES = {
     "gcn": gcn_mod,
@@ -77,6 +90,8 @@ class CellProgram:
     step_fn: Callable
     args: tuple                   # (state, batch)
     meta: dict = dataclasses.field(default_factory=dict)
+    #: repro's record of the cell's loops, for launch.roofline
+    loop_correction: dict = dataclasses.field(default_factory=dict)
 
     def with_backend(self, backend: str) -> Callable:
         """The cell's step with its kernels (segment sums, bags, attention)
@@ -145,6 +160,8 @@ def _lm_train_cell(cfg, shape, *, reduced, variant, device, generator):
         args=(state, {"tokens": tokens, "labels": tokens}),
         meta={"cfg": cfg, "tokens_per_step": gb * seq, "accum": accum, "opt_cfg": opt_cfg,
               "loss": functools.partial(tmodel.loss_fn, cfg=cfg), "make_step": make_step},
+        loop_correction={"kind": "lm_train", "n_layers": cfg.n_layers,
+                         "accum": LM_TRAIN_ACCUM},
     )
 
 
@@ -167,7 +184,8 @@ def _lm_prefill_cell(cfg, shape, *, reduced, variant, device, generator):
     params = tmodel.init_params(cfg, generator=generator, device=device)
     tokens = _tokens((b, seq), cfg.vocab, reduced=reduced, device=device, generator=generator)
     return CellProgram(step_fn=make_step(), args=(params, tokens),
-                       meta={"cfg": cfg, "make_step": make_step})
+                       meta={"cfg": cfg, "make_step": make_step},
+                       loop_correction={"kind": "lm_prefill"})
 
 
 def _lm_decode_cell(cfg, shape, *, reduced, variant, device, generator):
@@ -190,7 +208,8 @@ def _lm_decode_cell(cfg, shape, *, reduced, variant, device, generator):
     cache = tmodel.init_cache(cfg, b, seq, device=device)
     tokens = _tokens((b, 1), cfg.vocab, reduced=reduced, device=device, generator=generator)
     return CellProgram(step_fn=make_step(), args=(params, cache, tokens),
-                       meta={"cfg": cfg, "batch": b, "cache_len": seq, "make_step": make_step})
+                       meta={"cfg": cfg, "batch": b, "cache_len": seq, "make_step": make_step},
+                       loop_correction={"kind": "lm_decode"})
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +274,7 @@ def _init_state(mod, cfg, *, device, generator):
     return train_loop.init_state(model.tree(), OPT_CFG)
 
 
-def _gnn_train_cell(entry, cfg, shape, *, reduced, device, generator):
+def _gnn_train_cell(entry, cfg, shape, *, reduced, variant, device, generator):
     mod = GNN_MODULES[entry.model]
     kind = shape["kind"]
     if reduced:
@@ -274,7 +293,11 @@ def _gnn_train_cell(entry, cfg, shape, *, reduced, device, generator):
         cfg = dataclasses.replace(cfg, d_in=d_feat)
     if entry.model == "graphcast" and not reduced and e > 2_000_000:
         cfg = dataclasses.replace(cfg, remat=True, bf16=True)
-    elif entry.model == "mace" and not reduced and e > 2_000_000:
+    if entry.model == "mace" and variant.startswith("chunk"):
+        # two-point chunk variants for roofline extrapolation of the
+        # chunked density loop (launch/roofline.py)
+        cfg = dataclasses.replace(cfg, edge_chunks=int(variant[5:]))
+    elif entry.model == "mace" and not reduced and e > 2_000_000 and variant == "full":
         cfg = dataclasses.replace(cfg, edge_chunks=64)
 
     def graph(batch):
@@ -288,15 +311,19 @@ def _gnn_train_cell(entry, cfg, shape, *, reduced, device, generator):
     state = _init_state(mod, cfg, device=device, generator=generator)
     g = _gnn_graph_arrays(entry.model, cfg, n, e, d_feat, reduced=reduced,
                           n_graphs=n_graphs, device=device, generator=generator)
+    lc = {"kind": "gnn"}
+    if getattr(cfg, "edge_chunks", 0) > 1:
+        lc = {"kind": "gnn_chunked", "chunks": cfg.edge_chunks, "layers": cfg.n_layers}
     return CellProgram(
         step_fn=make_step(cfg.backend),
         args=(state, g),
         meta={"cfg": cfg, "n": n, "e": e, "module": mod, "graph": graph,
               "make_step": make_step},
+        loop_correction=lc,
     )
 
 
-def _gnn_sampled_cell(entry, cfg, shape, *, reduced, device, generator):
+def _gnn_sampled_cell(entry, cfg, shape, *, reduced, variant, device, generator):
     """minibatch_lg: in-step fanout sampling from the big CSR."""
     mod = GNN_MODULES[entry.model]
     if reduced:
@@ -380,11 +407,15 @@ def _gnn_sampled_cell(entry, cfg, shape, *, reduced, device, generator):
             return torch.randint(0, hi, shape_, generator=generator, dtype=torch.int32,
                                  device=device)
 
-        # the big CSR, built on the card from uniform random edges
-        c = csr_mod.from_coo(ints(n, (e,)), ints(n, (e,)), n=n, dedup=False,
-                             device=device)
-        batch = {"offsets": c.offsets, "dst": c.dst, "seeds": ints(n, (seeds_n,))}
-        del c
+        if _abstract():  # the dry run: the CSR as empty fakes of its shape
+            offsets = torch.empty((n + 1,), dtype=torch.int32, device=device)
+            dst = torch.empty((e,), dtype=torch.int32, device=device)
+        else:  # the big CSR, built on the card from uniform random edges
+            c = csr_mod.from_coo(ints(n, (e,)), ints(n, (e,)), n=n, dedup=False,
+                                 device=device)
+            offsets, dst = c.offsets, c.dst
+            del c
+        batch = {"offsets": offsets, "dst": dst, "seeds": ints(n, (seeds_n,))}
         if entry.model in ("mace", "schnet"):
             batch["node_feat"] = ints(10, (n,))
         else:
@@ -403,13 +434,14 @@ def _gnn_sampled_cell(entry, cfg, shape, *, reduced, device, generator):
         args=(state, batch),
         meta={"cfg": cfg, "n_sub": n_sub, "n": n, "e": e, "module": mod,
               "graph": graph, "make_step": make_step},
+        loop_correction={"kind": "gnn"},
     )
 
 
 # ---------------------------------------------------------------------------
 # recsys family
 # ---------------------------------------------------------------------------
-def _recsys_cell(cfg, shape, *, reduced, device, generator):
+def _recsys_cell(cfg, shape, *, reduced, variant, device, generator):
     kind = shape["kind"]
     if reduced:
         b, ncand = 8, 64
@@ -438,7 +470,8 @@ def _recsys_cell(cfg, shape, *, reduced, device, generator):
                  "item_logq": torch.zeros((b,), dtype=torch.float32, device=device)}
         return CellProgram(step_fn=make_step(), args=(state, batch),
                            meta={"cfg": cfg, "opt_cfg": OPT_CFG, "make_step": make_step,
-                                 "loss": functools.partial(tt_mod.loss_fn, cfg=cfg)})
+                                 "loss": functools.partial(tt_mod.loss_fn, cfg=cfg)},
+                           loop_correction={"kind": "recsys"})
     if kind == "serve":
         def make_step(backend=cfg.backend):
             c = dataclasses.replace(cfg, backend=backend)
@@ -446,7 +479,8 @@ def _recsys_cell(cfg, shape, *, reduced, device, generator):
 
         batch = {"user_bags": mk_bags(b, nf_u), "item_bags": mk_bags(b, nf_i)}
         return CellProgram(step_fn=make_step(), args=(params, batch),
-                           meta={"cfg": cfg, "make_step": make_step})
+                           meta={"cfg": cfg, "make_step": make_step},
+                           loop_correction={"kind": "recsys"})
     # retrieval: 1 query vs n_candidates
 
     def make_step(backend=cfg.backend):
@@ -456,33 +490,47 @@ def _recsys_cell(cfg, shape, *, reduced, device, generator):
 
     batch = {"user_bags": mk_bags(1, nf_u), "cand_bags": mk_bags(ncand, nf_i)}
     return CellProgram(step_fn=make_step(), args=(params, batch),
-                       meta={"cfg": cfg, "make_step": make_step})
+                       meta={"cfg": cfg, "make_step": make_step},
+                       loop_correction={"kind": "recsys"})
 
 
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
+def _abstract() -> bool:
+    """Whether the cell is built under a ``FakeTensorMode`` (the dry run)."""
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
+
+
 def build_cell(arch: str, shape_name: str, *, reduced: bool = False, variant: str = "full",
-               device="cuda", seed: int = 0) -> CellProgram:
+               device="cuda", seed: int = 0, data_axes: tuple = ()) -> CellProgram:
     """The (arch, shape) cell on ``device``; weights and (when not reduced)
-    data drawn from a ``torch.Generator`` seeded with ``seed``."""
+    data drawn from a ``torch.Generator`` seeded with ``seed``; the
+    config carrying ``data_axes``' activation sharding (module docstring)."""
     entry = cfgbase.get(arch)
     shape = cfgbase.FAMILY_SHAPES[entry.family][shape_name]
     cfg = entry.smoke if reduced else entry.full
+    if data_axes:
+        # activation sharding constraints (models/sharding_utils.py)
+        if entry.family == "lm":
+            cfg = dataclasses.replace(cfg, batch_axes=tuple(data_axes), tp_axis="model")
+        elif entry.family == "gnn":
+            cfg = dataclasses.replace(cfg, shard_axes=tuple(data_axes) + ("model",))
+        else:
+            cfg = dataclasses.replace(cfg, shard_axes=tuple(data_axes))
     dev = util.resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    kw = dict(reduced=reduced, device=dev, generator=gen)
+    kw = dict(reduced=reduced, variant=variant, device=dev, generator=gen)
     if entry.family == "lm":
         kind = shape["kind"]
         build = {"train": _lm_train_cell, "prefill": _lm_prefill_cell}.get(kind, _lm_decode_cell)
-        cell = build(cfg, shape, variant=variant, **kw)
+        cell = build(cfg, shape, **kw)
         cell.meta["full_layers"] = entry.full.n_layers
+        cell.loop_correction["full_layers"] = entry.full.n_layers
         return cell
     if entry.family == "gnn":
-        if variant != "full":
-            raise NotImplementedError(
-                f"{arch}: the {variant!r} variants wait for launch/roofline.py "
-                "(ROADMAP.md §1 item 6)")
         if shape["kind"] == "sampled":
             return _gnn_sampled_cell(entry, cfg, shape, **kw)
         return _gnn_train_cell(entry, cfg, shape, **kw)
@@ -510,4 +558,70 @@ def build_opt_cell(arch: str, *, variant: str = "cost1", device="cuda",
 
     return CellProgram(step_fn=step, args=(state, grads),
                        meta={"cfg": cfg, "opt_cfg": OPT_CFG_BF16,
-                             "full_layers": entry.full.n_layers})
+                             "full_layers": entry.full.n_layers},
+                       loop_correction={"kind": "lm_opt", "full_layers": entry.full.n_layers})
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+def attach_shardings(cell: CellProgram, mesh, arch: str, shape_name: str) -> tuple:
+    """The placements of the cell's args on ``mesh`` (a ``DeviceMesh`` or
+    ``MeshShape``): one tree a arg, each leaf's placements
+    (``launch.shardings``; ``repro``'s ``attach_shardings``)."""
+    entry = cfgbase.get(arch)
+    shape = cfgbase.FAMILY_SHAPES[entry.family][shape_name]
+    args = cell.args
+    if entry.family == "lm":
+        moe = entry.full.moe is not None
+        kind = shape["kind"]
+        if kind == "train":
+            return (shard_mod.lm_state_sharding(args[0], mesh, is_moe=moe),
+                    shard_mod.lm_batch_sharding(args[1], mesh))
+        p_s = shard_mod.lm_params_sharding(args[0], mesh, is_moe=moe)
+        if kind == "prefill":
+            return (p_s, shard_mod.lm_infer_batch_sharding(args[1], mesh))
+        return (p_s, shard_mod.lm_cache_sharding(args[1], mesh, batch=shape["global_batch"]),
+                shard_mod.lm_infer_batch_sharding(args[2], mesh))
+    if entry.family == "gnn":
+        return (shard_mod.gnn_state_sharding(args[0], mesh),
+                shard_mod.gnn_batch_sharding(args[1], mesh))
+    return (shard_mod.recsys_state_sharding(args[0], mesh),
+            shard_mod.recsys_batch_sharding(args[1], mesh))
+
+
+def shard_cell(cell: CellProgram, placements: tuple, mesh) -> CellProgram:
+    """The cell with its args distributed over ``mesh`` (``distribute_tensor``
+    of each tensor leaf to its placements, without a broadcast: every rank
+    drew the same tensors from the seed and keeps a copy of its own shard,
+    so the drawn tensors go with the unsharded cell; host values stay as
+    they are) and its step run under the mesh
+    (``sharding_utils.use_mesh``, with plain tensors the step makes, such
+    as positions and masks, taken as replicated)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def dist_leaf(x, pl):
+        if not isinstance(x, torch.Tensor):
+            return x
+        d = distribute_tensor(x.detach(), mesh, pl, src_data_rank=None)
+        local = su.no_grad_local(d)
+        if local.untyped_storage().nbytes() > local.nbytes:
+            # a slice of the drawn tensor: keep a copy, so the drawn tensor
+            # is freed with the unsharded cell
+            d = DTensor.from_local(local.clone(), mesh, pl, run_check=False, shape=d.shape,
+                                   stride=d.stride())
+        return d.requires_grad_(x.requires_grad)
+
+    args = tuple(tree_mod.tree_map(dist_leaf, a, p) for a, p in zip(cell.args, placements))
+
+    def on_mesh(step):
+        def run(*a):
+            with su.use_mesh(mesh), implicit_replication():
+                return step(*a)
+        return run
+
+    meta = dict(cell.meta)
+    if "make_step" in meta:
+        meta["make_step"] = lambda *a, **k: on_mesh(cell.meta["make_step"](*a, **k))
+    return dataclasses.replace(cell, step_fn=on_mesh(cell.step_fn), args=args, meta=meta)

@@ -11,6 +11,24 @@ a sum first takes a stable sort of its segment ids (``EdgeOrder``), made
 once per id tensor and cached on it: every layer of a forward, the
 backward and ``segment_mean``'s counts reuse it.
 
+Under a mesh (``models.sharding_utils``) the graph's node and edge arrays
+are ``DTensor``s block-sharded on dim 0 (``launch.shardings.
+gnn_batch_sharding``: every axis) and the parameters replicated.  The two
+sites that read edges run on each rank's own edges through ``local_map``:
+
+* :func:`segment_sum` (the ``edge_segment_runs`` kernel): each rank sums
+  its edges into all ``num`` segments, so the output is ``Partial(sum)``
+  on every mesh dim that shards the edges; the messages follow their edges
+  (redistributed to the edge placement, a no-op when they are there) and
+  the sum is reduced where ``repro``'s constraint asks (``maybe_constrain``
+  of the output: a reduce-scatter).  :func:`segment_counts` all-reduces its
+  [num] counts.
+* :func:`gather`: the node values are all-gathered (one [N, d]
+  all-gather), the edge index stays sharded; the values' grad is
+  ``Partial(sum)`` where the index is sharded.
+
+Any other placement of the edges raises.
+
 Parameters are trees shaped as ``repro``'s pytrees (``core.tree``);
 ``GNNModel`` holds one as an ``nn.Module`` whose names mirror the tree's
 paths (``params["layers"][0]["w"]`` is ``layers.0.w``), so a checkpoint of
@@ -27,6 +45,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ...core import csr as csr_mod, util
 from ...kernels.csr_build import kernel as cb_kernel
 from ...kernels.edge_segment_sum import ops as seg_ops
+from .. import sharding_utils as su
 from ..param_tree import ParamTree
 
 
@@ -81,7 +100,7 @@ class EdgeOrder:
 
     def counts(self, backend: str = "auto") -> torch.Tensor:
         if self._counts is None:
-            fn = (cb_kernel.degree_offsets
+            fn = (cb_kernel.degree_offsets_op
                   if util.resolve_backend(backend, self.rows.device) == "cuda"
                   else cb_kernel.degree_offsets_torch)
             off = fn(self.rows, self.num + 1)
@@ -140,16 +159,48 @@ class _SortedSegmentSum(torch.autograd.Function):
         return g.reshape(order.key.shape + grad.shape[1:]), None, None
 
 
+def _edge_placements(seg) -> tuple:
+    """(this rank's edges' placements, the per-segment output's): edges
+    ``Shard(0)`` or ``Replicate()`` on each mesh dim; the output
+    ``Partial(sum)`` where the edges are sharded."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    for p in seg.placements:
+        if not (p.is_replicate() or p.is_shard(0)):
+            raise ValueError(f"segment ids must be Shard(0) or Replicate() on each mesh dim, "
+                             f"got {seg.placements}")
+    return tuple(seg.placements), tuple(Partial() if p.is_shard() else Replicate()
+                                        for p in seg.placements)
+
+
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor, num: int, *,
                 backend: str = "auto") -> torch.Tensor:
     """``jax.ops.segment_sum(vals, seg, num)``: ids outside [0, num) drop."""
-    return _SortedSegmentSum.apply(vals, edge_order(seg, num), backend)
+    if not su.is_dtensor(seg):
+        return _SortedSegmentSum.apply(vals, edge_order(seg, num), backend)
+    from torch.distributed.tensor.experimental import local_map
+
+    edge_pl, out_pl = _edge_placements(seg)
+    if tuple(vals.placements) != edge_pl:
+        vals = vals.redistribute(seg.device_mesh, edge_pl)
+    order = edge_order(su.no_grad_local(seg), num)
+    site = local_map(lambda v: _SortedSegmentSum.apply(v, order, backend),
+                     out_placements=list(out_pl), in_placements=(edge_pl,),
+                     device_mesh=seg.device_mesh)
+    return site(vals)
 
 
 def segment_counts(seg: torch.Tensor, num: int, dtype=torch.float32, *,
                    backend: str = "auto") -> torch.Tensor:
     """Ids a segment, as ``segment_sum(ones, seg, num)`` gives them."""
-    return edge_order(seg, num).counts(backend).to(dtype)
+    if not su.is_dtensor(seg):
+        return edge_order(seg, num).counts(backend).to(dtype)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    _, out_pl = _edge_placements(seg)
+    local = edge_order(su.no_grad_local(seg), num).counts(backend).to(dtype)
+    counts = DTensor.from_local(local, seg.device_mesh, out_pl, run_check=False)
+    return counts.redistribute(seg.device_mesh, [Replicate()] * len(out_pl))
 
 
 def segment_mean(vals, seg, num, *, backend: str = "auto"):
@@ -176,11 +227,75 @@ def aggregate(messages, edge_dst, n_nodes, *, mode: str = "sum", backend: str = 
 
 def gather(node_vals, idx):
     """Padding-safe node gather (idx >= N returns zeros)."""
+    if su.is_dtensor(idx):
+        return _sharded_gather(node_vals, idx)
+    return _gather(node_vals, idx)
+
+
+def embed_rows(table, ids):
+    """``table``'s rows at ``ids`` clamped into range (species embeddings);
+    under a mesh on each rank's own ids, as :func:`gather` takes them."""
+    ids = torch.clamp(ids, 0, table.shape[0] - 1)
+    if su.is_dtensor(ids):
+        return _sharded_gather(table, ids)
+    return table.index_select(0, ids)
+
+
+def _sharded_gather(node_vals, idx):
+    """``gather`` on each rank's own indices: the node values all-gathered,
+    the output placed as the index; the values' grad ``Partial(sum)``
+    where the index is sharded."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = idx.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not su.is_dtensor(node_vals):
+        node_vals = DTensor.from_local(node_vals, mesh, rep, run_check=False)
+    node_vals = node_vals.redistribute(mesh, rep)
+    idx_pl = tuple(idx.placements)
+    grad_pl = tuple(Partial() if p.is_shard() else Replicate() for p in idx_pl)
+    site = local_map(_gather, out_placements=list(idx_pl), in_placements=(rep, idx_pl),
+                     in_grad_placements=(grad_pl, idx_pl), device_mesh=mesh)
+    return site(node_vals, idx)
+
+
+def _gather(node_vals, idx):
     n = node_vals.shape[0]
     safe = torch.clamp(idx, max=n - 1)
     vals = node_vals.index_select(0, safe)
     mask = (idx < n).reshape((-1,) + (1,) * (vals.ndim - 1))
     return torch.where(mask, vals, 0)
+
+
+def node_zeros(like, shape, dtype=torch.float32):
+    """Zeros of ``shape`` on ``like``'s device; under a mesh a DTensor placed
+    as ``like`` (node arrays: rows sharded as the nodes)."""
+    if not su.is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+
+    return zeros(shape, dtype=dtype, device_mesh=like.device_mesh, placements=like.placements)
+
+
+def edge_chunks(src, dst, n: int, k: int) -> list:
+    """``k`` (src, dst) chunks of the edges, the tail padded with the sink
+    ``n``.  Under a mesh each rank chunks its own edges (the chunks keep the
+    edges' placements), so no edge crosses ranks; the sums over all chunks
+    are the same."""
+    if not su.is_dtensor(src):
+        return list(zip(*(_chunk(t, n, k) for t in (src, dst))))
+    from torch.distributed.tensor import DTensor
+
+    mesh, pl = src.device_mesh, src.placements
+    return [tuple(DTensor.from_local(t, mesh, pl, run_check=False) for t in pair)
+            for pair in zip(*(_chunk(su.no_grad_local(t), n, k) for t in (src, dst)))]
+
+
+def _chunk(ids, n: int, k: int):
+    ck = -(-ids.shape[0] // k)
+    pad = torch.full((k * ck - ids.shape[0],), n, dtype=ids.dtype, device=ids.device)
+    return torch.cat([ids, pad]).split(ck)
 
 
 class _Silu(torch.autograd.Function):
@@ -245,9 +360,3 @@ class GNNModel(ParamTree):
     def forward(self, g: dict) -> torch.Tensor:
         return self._forward(self.tree(), g, self.cfg)
 
-
-def check_shard_axes(cfg) -> None:
-    if cfg.shard_axes:
-        raise NotImplementedError(
-            "shard_axes: sharding constraints come with model sharding over a "
-            "DeviceMesh (ROADMAP.md §1 item 6)")

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from ...core import util
+from .. import sharding_utils as su
 from ..param_tree import tensors_from_numpy
 from . import common
 
@@ -28,7 +29,7 @@ class GCNConfig:
     aggregator: str = "mean"
     norm: str = "sym"
     dropout: float = 0.5
-    shard_axes: tuple = ()   # mesh axes (not ported: must stay empty)
+    shard_axes: tuple = ()   # mesh axes for node/edge dim-0 sharding
     backend: str = "auto"    # the segment sums: "auto" | "cuda" | "torch"
 
 
@@ -43,12 +44,12 @@ def init_params(cfg: GCNConfig, *, generator: torch.Generator, device):
 
 def forward(params, g: dict, cfg: GCNConfig):
     """g: {node_feat [N,F], edge_src [E], edge_dst [E]} (+self-loops added)."""
-    common.check_shard_axes(cfg)
     x = g["node_feat"].to(torch.float32)
     n = x.shape[0]
     src, dst = g["edge_src"], g["edge_dst"]
     deg = common.segment_counts(dst, n, backend=cfg.backend) + 1.0
     inv_sqrt = torch.rsqrt(deg)
+    x = su.maybe_constrain(x, cfg.shard_axes)
     for i, lp in enumerate(params["layers"]):
         h = x @ lp["w"] + lp["b"]
         if cfg.norm == "sym":
@@ -60,6 +61,7 @@ def forward(params, g: dict, cfg: GCNConfig):
             agg = common.aggregate(msg, dst, n, mode=cfg.aggregator,
                                    backend=cfg.backend) + h
         x = torch.relu(agg) if i < len(params["layers"]) - 1 else agg
+        x = su.maybe_constrain(x, cfg.shard_axes)
     return x
 
 

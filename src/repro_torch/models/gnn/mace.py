@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...core import util
+from .. import sharding_utils as su
 from ..param_tree import tensors_from_numpy
 from . import common
 
@@ -48,7 +49,7 @@ class MACEConfig:
     # exact: each chunk's density is recomputed in the backward
     # (torch.utils.checkpoint), so one chunk's working set is live at a time.
     edge_chunks: int = 0
-    shard_axes: tuple = ()   # mesh axes (not ported: must stay empty)
+    shard_axes: tuple = ()   # mesh axes for node/edge dim-0 sharding
     backend: str = "auto"    # the segment sums: "auto" | "cuda" | "torch"
 
 
@@ -56,8 +57,28 @@ class MACEConfig:
 def sym0(t):
     """Symmetric traceless part of [..., 3, 3]."""
     s = 0.5 * (t + t.transpose(-1, -2))
-    tr = torch.diagonal(s, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+    # the trace as a sum of the three diagonal elements: DTensor on torch
+    # 2.11 has no rule for ``diagonal``'s backward
+    tr = (s[..., 0, 0] + s[..., 1, 1] + s[..., 2, 2])[..., None, None]
     return s - tr * torch.eye(3, dtype=t.dtype, device=t.device) / 3.0
+
+
+def _cross(a, b):
+    """The cross product over the last dim; under a mesh on each rank's rows
+    (``local_map``: DTensor on torch 2.11 has no rule for it), both placed
+    as ``a``'s rows with whole vectors (partial sums reduced first)."""
+    if not su.is_dtensor(a):
+        return torch.linalg.cross(a, b, dim=-1)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    last = a.ndim - 1
+    pl = tuple(Replicate() if p.is_partial() or p.is_shard(last) else p
+               for p in a.placements)
+    a, b = (t if tuple(t.placements) == pl else t.redistribute(a.device_mesh, pl)
+            for t in (a, b))
+    return local_map(lambda x, y: torch.linalg.cross(x, y, dim=-1), out_placements=list(pl),
+                     in_placements=(pl, pl), device_mesh=a.device_mesh)(a, b)
 
 
 def pairwise_product(a, b, w):
@@ -75,7 +96,7 @@ def pairwise_product(a, b, w):
     v = (
         w["sv_v"][:, None] * a["s"][..., None] * b["v"]
         + w["vs_v"][:, None] * b["s"][..., None] * a["v"]
-        + w["vv_v"][:, None] * torch.linalg.cross(a["v"], b["v"], dim=-1)
+        + w["vv_v"][:, None] * _cross(a["v"], b["v"])
         + w["tv_v"][:, None] * ein("...cij,...cj->...ci", a["t"], b["v"])
         + w["vt_v"][:, None] * ein("...cij,...cj->...ci", b["t"], a["v"])
     )
@@ -133,21 +154,22 @@ def init_params(cfg: MACEConfig, *, generator: torch.Generator, device):
 def forward(params, g: dict, cfg: MACEConfig):
     """g: {node_feat [N] species, positions [N,3], edge_src, edge_dst,
     graph_ids?, n_graphs?} -> per-graph energies."""
-    common.check_shard_axes(cfg)
     species = g["node_feat"].to(torch.int32)
     pos = g["positions"].to(torch.float32)
     src, dst = g["edge_src"], g["edge_dst"]
     n = pos.shape[0]
     c = cfg.d_hidden
-    dev = pos.device
     embed = params["embed"]
 
+    def zeros(*shape):  # node-shaped zeros, placed as the nodes under a mesh
+        return common.node_zeros(pos, shape)
+
     h = {
-        "s": embed.index_select(0, torch.clamp(species, 0, embed.shape[0] - 1)),
-        "v": torch.zeros((n, c, 3), dtype=torch.float32, device=dev),
-        "t": torch.zeros((n, c, 3, 3), dtype=torch.float32, device=dev),
+        "s": common.embed_rows(embed, species),
+        "v": zeros(n, c, 3),
+        "t": zeros(n, c, 3, 3),
     }
-    energies = torch.zeros((n,), dtype=torch.float32, device=dev)
+    energies = zeros(n)
 
     def density(lp, h, src_e, dst_e):
         """A-density contribution of an edge set (exact; linear in edges)."""
@@ -165,32 +187,25 @@ def forward(params, g: dict, cfg: MACEConfig):
         a_s = rw[:, 0] * hs
         a_v = rw[:, 1][..., None] * (hs[..., None] * y1[:, None, :] + hv)
         a_t = rw[:, 2][..., None, None] * (hs[..., None, None] * y2[:, None] + ht)
+        sx = cfg.shard_axes
         return {
-            "s": common.aggregate(a_s, dst_e, n, backend=cfg.backend),
-            "v": common.aggregate(a_v, dst_e, n, backend=cfg.backend),
-            "t": common.aggregate(a_t, dst_e, n, backend=cfg.backend),
+            "s": su.maybe_constrain(common.aggregate(a_s, dst_e, n, backend=cfg.backend), sx),
+            "v": su.maybe_constrain(common.aggregate(a_v, dst_e, n, backend=cfg.backend), sx),
+            "t": su.maybe_constrain(common.aggregate(a_t, dst_e, n, backend=cfg.backend), sx),
         }
 
     chunks = None
     if cfg.edge_chunks > 1:
         # the chunks' id tensors are made once, so each keeps its cached
         # sort through every layer and the recomputation in the backward
-        e_total = src.shape[0]
-        ck = -(-e_total // cfg.edge_chunks)
-        pad = cfg.edge_chunks * ck - e_total
-        src_p = torch.cat([src, torch.full((pad,), n, dtype=src.dtype, device=dev)])
-        dst_p = torch.cat([dst, torch.full((pad,), n, dtype=dst.dtype, device=dev)])
-        chunks = list(zip(src_p.split(ck), dst_p.split(ck)))
+        chunks = common.edge_chunks(src, dst, n, cfg.edge_chunks)
 
     for lp in params["layers"]:
         if chunks is not None:
-            agg = {
-                "s": torch.zeros((n, c), dtype=torch.float32, device=dev),
-                "v": torch.zeros((n, c, 3), dtype=torch.float32, device=dev),
-                "t": torch.zeros((n, c, 3, 3), dtype=torch.float32, device=dev),
-            }
+            agg = {"s": zeros(n, c), "v": zeros(n, c, 3), "t": zeros(n, c, 3, 3)}
             for s_c, d_c in chunks:
-                contrib = checkpoint(density, lp, h, s_c, d_c, use_reentrant=False)
+                contrib = checkpoint(density, lp, h, s_c, d_c, use_reentrant=False,
+                                     context_fn=su.remat_context)
                 agg = {k: agg[k] + contrib[k] for k in agg}
         else:
             agg = density(lp, h, src, dst)
@@ -204,9 +219,10 @@ def forward(params, g: dict, cfg: MACEConfig):
         B2 = pairwise_product(A, A, lp["prod2"])
         B3 = pairwise_product(B2, A, lp["prod3"])
         h = {
-            "s": h["s"] @ lp["res"] + A["s"] + B2["s"] + B3["s"],
-            "v": A["v"] + B2["v"] + B3["v"],
-            "t": A["t"] + B2["t"] + B3["t"],
+            "s": su.maybe_constrain(h["s"] @ lp["res"] + A["s"] + B2["s"] + B3["s"],
+                                    cfg.shard_axes),
+            "v": su.maybe_constrain(A["v"] + B2["v"] + B3["v"], cfg.shard_axes),
+            "t": su.maybe_constrain(A["t"] + B2["t"] + B3["t"], cfg.shard_axes),
         }
         energies = energies + common.mlp(lp["layer_readout"], h["s"])[:, 0]
     energies = energies + common.mlp(params["readout"], h["s"])[:, 0]

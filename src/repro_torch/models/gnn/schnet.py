@@ -13,6 +13,7 @@ import math
 import torch
 
 from ...core import util
+from .. import sharding_utils as su
 from ..param_tree import tensors_from_numpy
 from . import common
 
@@ -25,7 +26,7 @@ class SchNetConfig:
     n_rbf: int = 300
     cutoff: float = 10.0
     n_species: int = 100
-    shard_axes: tuple = ()   # mesh axes (not ported: must stay empty)
+    shard_axes: tuple = ()   # mesh axes for node/edge dim-0 sharding
     backend: str = "auto"    # the segment sums: "auto" | "cuda" | "torch"
 
 
@@ -65,25 +66,26 @@ def rbf_expand(r, cfg: SchNetConfig):
 
 def forward(params, g: dict, cfg: SchNetConfig):
     """g: {node_feat [N] int species, positions [N,3], edge_src, edge_dst}."""
-    common.check_shard_axes(cfg)
     species = g["node_feat"].to(torch.int32)
     pos = g["positions"].to(torch.float32)
     src, dst = g["edge_src"], g["edge_dst"]
     n = pos.shape[0]
     embed = params["embed"]
-    h = embed.index_select(0, torch.clamp(species, 0, embed.shape[0] - 1))
+    h = common.embed_rows(embed, species)
     rel = common.gather(pos, dst) - common.gather(pos, src)
     mask = (src < n) & (dst < n)
     r = torch.sqrt(torch.sum(rel * rel, dim=-1) + 1e-12)
     rbf = rbf_expand(r, cfg) * mask[:, None]
     # smooth cutoff (cosine)
     fc = 0.5 * (torch.cos(math.pi * torch.clamp(r / cfg.cutoff, 0, 1)) + 1.0)
+    rbf = su.maybe_constrain(rbf, cfg.shard_axes)
+    h = su.maybe_constrain(h, cfg.shard_axes)
     for ip in params["interactions"]:
         w = common.mlp(ip["filter"], rbf) * fc[:, None]
         hj = common.mlp(ip["in_lin"], h)
-        msg = common.gather(hj, src) * w
+        msg = su.maybe_constrain(common.gather(hj, src) * w, cfg.shard_axes)
         agg = common.aggregate(msg, dst, n, backend=cfg.backend)
-        h = h + common.mlp(ip["out"], agg)
+        h = su.maybe_constrain(h + common.mlp(ip["out"], agg), cfg.shard_axes)
     site_e = common.mlp(params["readout"], h)[:, 0]           # [N]
     gid = g.get("graph_ids")
     if gid is None:

@@ -30,19 +30,18 @@ import torch
 
 from ...core import util
 from ...kernels.embedding_bag import ops as bag_ops
+from .. import sharding_utils as su
 from ..param_tree import ParamTree, tensors_from_numpy
 
 
 @dataclasses.dataclass(frozen=True)
 class TwoTowerConfig:
-    """``repro``'s ``TwoTowerConfig``; ``use_kernel`` is ``backend``.
-    ``shard_axes`` (batch sharding constraints) comes with the mesh and
-    must stay empty."""
+    """``repro``'s ``TwoTowerConfig``; ``use_kernel`` is ``backend``."""
     name: str = "two-tower-retrieval"
     embed_dim: int = 256
     tower_mlp: Sequence[int] = (1024, 512, 256)
     interaction: str = "dot"
-    shard_axes: tuple = ()       # mesh axes for the batch dim (not ported)
+    shard_axes: tuple = ()       # mesh axes for the batch dim
     n_users: int = 10_000_000
     n_items: int = 10_000_000
     n_user_fields: int = 4       # multi-hot history bags per user example
@@ -50,12 +49,6 @@ class TwoTowerConfig:
     bag_size: int = 16           # indices per field (pow-2)
     temperature: float = 0.05
     backend: str = "auto"        # bag kernel: "auto" | "cuda" | "torch"
-
-    def __post_init__(self):
-        if self.shard_axes:
-            raise NotImplementedError(
-                "shard_axes: sharding constraints come with model sharding over a "
-                "DeviceMesh (ROADMAP.md §1 item 6)")
 
 
 def _tower_shapes(cfg: TwoTowerConfig, vocab: int, n_fields: int):
@@ -91,24 +84,78 @@ def pool_fields(tp: dict, bags: torch.Tensor, cfg: TwoTowerConfig) -> torch.Tens
     """bags [B, n_fields, K] int32 (-1 pad) -> [B, n_fields * embed_dim]:
     each field's bag mean-pooled through the ``embedding_bag`` op."""
     b, nf, k = bags.shape
-    pooled = bag_ops.embedding_bag(tp["table"], bags.reshape(b * nf, k),
-                                   combine="mean", backend=cfg.backend)
+    ids = bags.reshape(b * nf, k)
+    if su.is_dtensor(tp["table"]):
+        pooled = _sharded_mean_bag(tp["table"], ids, cfg.backend)
+    else:
+        pooled = bag_ops.embedding_bag(tp["table"], ids, combine="mean", backend=cfg.backend)
     return pooled.reshape(b, nf * cfg.embed_dim)
 
 
-def mlp_head(tp: dict, x: torch.Tensor) -> torch.Tensor:
-    """The tower's MLP (ReLU between layers), then L2 normalisation."""
+def _sharded_mean_bag(table, ids, backend: str):
+    """The mean bag on each rank's own table rows (``local_map``).
+
+    Placement rule: the table's rows are sharded over a set of mesh dims
+    (``launch.shardings.recsys_state_sharding``: ``"model"``) and the bags
+    over others (the data axes), disjoint; everything else replicated.
+    Each rank sums the ids that fall in its rows (the ``embedding_bag``
+    kernel, ``combine="sum"``, the others masked to -1) and divides by the
+    bag's global count of valid ids, so the output is ``Partial(sum)`` on
+    the table's dims and sharded as the bags elsewhere; the table's grad is
+    ``Partial(sum)`` on the bags' dims (each rank's bags add to it).  An id >= V reads
+    row V-1, as the unsharded bag does.  Any other placement raises.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    if not su.is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    out_pl, grad_pl = [], []
+    for i, (tp_, ip_) in enumerate(zip(table.placements, ids.placements)):
+        if tp_.is_shard(0) and ip_.is_replicate():
+            out_pl.append(Partial())
+            grad_pl.append(tp_)
+        elif tp_.is_replicate() and (ip_.is_replicate() or ip_.is_shard(0)):
+            out_pl.append(ip_ if ip_.is_replicate() else Shard(0))
+            # the table's grad from this rank's bags only
+            grad_pl.append(ip_ if ip_.is_replicate() else Partial())
+        else:
+            raise ValueError(f"embedding_bag: table {table.placements} and bags "
+                             f"{ids.placements} do not fit the row/bag rule on mesh dim {i}")
+    su.requires_even(table, 0, "embedding_bag table")
+    lo, vocab = su.local_offset(table, 0), table.shape[0]
+
+    def site(table_l, ids_l):
+        valid = ids_l >= 0
+        gid = torch.clamp(ids_l, max=vocab - 1) - lo
+        mine = valid & (gid >= 0) & (gid < table_l.shape[0])
+        local = torch.where(mine, gid, -1).to(torch.int32)
+        s = bag_ops.embedding_bag(table_l, local, combine="sum", backend=backend)
+        return s / torch.clamp(valid.sum(dim=1, keepdim=True), min=1)
+
+    return local_map(site, out_placements=list(out_pl),
+                     in_placements=(tuple(table.placements), tuple(ids.placements)),
+                     in_grad_placements=(tuple(grad_pl), tuple(ids.placements)),
+                     device_mesh=mesh)(table, ids)
+
+
+def mlp_head(tp: dict, x: torch.Tensor, shard_axes: tuple = ()) -> torch.Tensor:
+    """The tower's MLP (ReLU between layers), then L2 normalisation; the
+    input and the output constrained to ``shard_axes`` under a mesh."""
+    x = su.maybe_constrain(x, shard_axes)
     n = len(tp["mlp"])
     for i, lp in enumerate(tp["mlp"]):
         x = x @ lp["w"] + lp["b"]
         if i < n - 1:
             x = torch.relu(x)
-    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-6)
+    x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-6)
+    return su.maybe_constrain(x, shard_axes)
 
 
 def tower_forward(tp: dict, bags: torch.Tensor, cfg: TwoTowerConfig) -> torch.Tensor:
     """bags [B, n_fields, K] int32 (-1 pad) -> [B, embed_dim] normalised."""
-    return mlp_head(tp, pool_fields(tp, bags, cfg))
+    return mlp_head(tp, pool_fields(tp, bags, cfg), cfg.shard_axes)
 
 
 def loss_fn(params: dict, batch, cfg: TwoTowerConfig):
@@ -121,9 +168,32 @@ def loss_fn(params: dict, batch, cfg: TwoTowerConfig):
     logits = (u @ v.T) / cfg.temperature                  # [B, B]
     logits = logits - batch["item_logq"][None, :]          # logQ correction
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.diagonal(logits)
+    gold = _sharded_diagonal(logits) if su.is_dtensor(logits) else torch.diagonal(logits)
     ce = (lse - gold).mean()
     return ce, {"ce": ce}
+
+
+def _sharded_diagonal(logits):
+    """The diagonal of [B, B] logits (a DTensor) on each rank's rows
+    (``local_map``; DTensor has no rule for the diagonal's backward).
+
+    Placement rule: rows sharded (``Shard(0)``) or replicated on each mesh
+    dim, the columns whole (a redistribute where they are sharded); each
+    rank takes the diagonal of its row block, so the output is placed as
+    the rows.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in logits.placements)
+    if tuple(logits.placements) != pl:
+        logits = logits.redistribute(mesh, pl)
+    su.requires_even(logits, 0, "diagonal")
+    lo = su.local_offset(logits, 0)
+    return local_map(lambda lg: torch.diagonal(lg[:, lo:lo + lg.shape[0]]),
+                     out_placements=list(pl), in_placements=(pl,),
+                     device_mesh=mesh)(logits)
 
 
 def score_candidates(params: dict, user_bags, cand_bags, cfg: TwoTowerConfig):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ...kernels.flash_attention import ops as fa_ops
+from .. import sharding_utils
 
 NEG_INF = -1e30
 
@@ -81,7 +82,23 @@ def blocked_attention(q, k, v, *, causal=True, window=0, block=512):
 
 
 def attention(q, k, v, *, impl="blocked", causal=True, window=0, block=512,
-              backend="auto"):
+              backend="auto", batch_axes=(), tp_axis=""):
+    """q [B, Hq, S, D], k/v [B, Hkv, S, D] -> [B, Hq, S, D] through ``impl``.
+
+    Under a mesh (``DTensor`` inputs) each rank runs ``impl`` on its own
+    heads through ``local_map``.  Placement rule: heads over ``tp_axis``
+    (``"model"`` when not given), the batch over ``batch_axes``, each
+    dropped where it does not divide (the kv heads decide: a rank's q heads
+    are the groups of its kv heads, so the GQA group must divide evenly, or
+    the heads replicate); q, k and v are redistributed to that placement (a
+    no-op when the projections left them there; from a sequence-sharded
+    layer input, the all-to-all that gathers the sequence) and the output
+    keeps it.
+    """
+    if sharding_utils.is_dtensor(q):
+        return _sharded_attention(q, k, v, impl=impl, causal=causal, window=window,
+                                  block=block, backend=backend, batch_axes=batch_axes,
+                                  tp_axis=tp_axis)
     if impl == "ref":
         return ref_attention(q, k, v, causal=causal, window=window)
     if impl == "blocked":
@@ -95,6 +112,18 @@ def attention(q, k, v, *, impl="blocked", causal=True, window=0, block=512,
         return fa_ops.attention(q, k, v, causal=causal, window=window, backend=backend,
                                 block_q=block, block_k=block)
     raise ValueError(impl)
+
+
+def _sharded_attention(q, k, v, *, batch_axes, tp_axis, **kw):
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    tp = tp_axis or ("model" if "model" in mesh.mesh_dim_names else None)
+    pl = sharding_utils.spec_to_placements((tuple(batch_axes) or None, tp), k.shape, mesh)
+    q, k, v = (t if tuple(t.placements) == pl else t.redistribute(mesh, pl) for t in (q, k, v))
+    site = local_map(lambda q_, k_, v_: attention(q_, k_, v_, **kw),
+                     out_placements=list(pl), in_placements=(pl, pl, pl), device_mesh=mesh)
+    return site(q, k, v)
 
 
 decode_attention = fa_ops.decode_attention

@@ -2,13 +2,13 @@
 ``repro.models.transformer.config``): dense (mistral-large, qwen2,
 h2o-danube w/ SWA) and MoE (qwen3-moe, arctic w/ dense residual).
 
-``repro``'s ``TransformerConfig`` less what belongs to XLA or the mesh:
+``repro``'s ``TransformerConfig`` less what belongs to XLA:
 ``scan_layers`` (a ``lax.scan`` over the stacked layers; the port runs a
-Python loop over them, so there is nothing to choose), ``batch_axes`` and
-``tp_axis`` (activation sharding constraints, which come with model
-sharding over a DeviceMesh, ROADMAP.md §1 item 6).  The dtypes are torch dtypes; ``backend`` picks the
-attention kernel as ``TwoTowerConfig``'s does (``"auto"`` | ``"cuda"`` |
-``"torch"``).
+Python loop over them, so there is nothing to choose).  ``batch_axes`` and
+``tp_axis`` are ``repro``'s activation sharding axes, applied under a mesh
+(``models.sharding_utils``).  The dtypes are torch dtypes; ``backend``
+picks the attention kernel as ``TwoTowerConfig``'s does (``"auto"`` |
+``"cuda"`` | ``"torch"``).
 """
 from __future__ import annotations
 
@@ -50,6 +50,10 @@ class TransformerConfig:
     attn_impl: str = "blocked"          # ref | blocked | flash
     attn_block: int = 512               # kv block for blocked/flash impls
     backend: str = "auto"               # flash kernel: "auto" | "cuda" | "torch"
+    # activation sharding (models/sharding_utils.py): mesh axis names for
+    # the batch dim and the tensor-parallel axis; () / "" = unconstrained
+    batch_axes: tuple = ()
+    tp_axis: str = ""
 
     @property
     def head_dim(self) -> int:

@@ -7,10 +7,12 @@ Two standard schemes with error feedback:
 
 Error feedback keeps both unbiased-in-the-limit (Karimireddy et al. 2019).
 The compressors plug into ``train.loop.make_train_step(compress_fn=...)``
-and carry their residual in the closure, as ``repro``'s do.  Until model
-sharding (ROADMAP.md §1 item 6) there is no pod-axis all-reduce to wrap:
-the hook compresses and decompresses in place of it.  ``torch.round`` rounds
-half to even as ``jnp.round`` does, so the int8 codes are ``repro``'s.
+and carry their residual in the closure, as ``repro``'s do.  Neither
+package wraps the pod-axis all-reduce itself: under a mesh the grads are
+reduced by DTensor (``train.optimizer.follow``), and the hook compresses
+and decompresses the grads it is handed, as ``repro``'s does.
+``torch.round`` rounds half to even as ``jnp.round`` does, so the int8
+codes are ``repro``'s.
 """
 from __future__ import annotations
 

@@ -6,7 +6,10 @@ The counterpart of ``repro.train.loop``.  A train state is the tree
 cross the packages); its parameter leaves are tensors that require grad,
 and a step updates them in place.  PyTorch runs eagerly, so there is no
 jit: a Python loop over the microbatches takes the place of
-``lax.scan``.
+``lax.scan``.  Sharded state (``DTensor`` leaves, ``launch.steps.
+shard_cell``) runs the same step: the loss is replicated before its grad
+is taken, the accumulated grads follow their parameters' placements, and
+the reported loss is this rank's replica.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core import tree as tree_mod
+from ..models import sharding_utils as su
 from . import optimizer as opt_mod
 
 
@@ -23,10 +27,16 @@ def _grads_of(loss_fn: Callable, params, batch):
     """(loss, grads tree): the gradient of ``loss_fn(params, batch)[0]``
     with respect to every parameter leaf (zeros where it is unused)."""
     loss, _ = loss_fn(params, batch)
+    sharded = su.is_dtensor(loss)
+    if sharded:  # a DTensor loss is replicated before its grad is taken
+        from torch.distributed.tensor import Replicate
+
+        loss = loss.redistribute(loss.device_mesh, [Replicate()] * loss.device_mesh.ndim)
     leaves = tree_mod.leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return loss.detach(), tree_mod.unflatten(params, grads)
+    loss = loss.detach()
+    return (loss.to_local() if sharded else loss), tree_mod.unflatten(params, grads)
 
 
 def make_train_step(
@@ -48,14 +58,14 @@ def make_train_step(
     def step(state, batch):
         params = state["params"]
         if grad_accum > 1:
-            acc = tree_mod.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            acc = tree_mod.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             losses = []
             for i in range(grad_accum):
                 mb = tree_mod.tree_map(lambda x: x[i], batch)
                 loss, grads = _grads_of(loss_fn, params, mb)
                 tree_mod.tree_map(
-                    lambda a, g: a.copy_(a + g.to(torch.float32) / grad_accum), acc, grads)
+                    lambda a, g: a.copy_(a + opt_mod.follow(g, a).to(torch.float32) / grad_accum),
+                    acc, grads)
                 losses.append(loss)
             grads = acc
             loss = torch.stack(losses).mean()

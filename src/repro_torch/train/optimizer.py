@@ -19,6 +19,7 @@ from typing import Any
 import torch
 
 from ..core import tree as tree_mod
+from ..models import sharding_utils as su
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +105,14 @@ def init(params, cfg: OptimizerConfig) -> dict:
     raise ValueError(cfg.name)
 
 
+def follow(g, p):
+    """Grad ``g`` placed as its parameter ``p`` (a DTensor grad may come
+    out ``Partial``: this is its reduction), else ``g`` itself."""
+    if su.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 @torch.no_grad()
 def update(grads, state: dict, params, cfg: OptimizerConfig):
     """One step in place: returns (params, state, metrics), the same trees
@@ -113,13 +122,38 @@ def update(grads, state: dict, params, cfg: OptimizerConfig):
     (``clip_by_global_norm``'s product, leaf by leaf; AdamW also a run of
     rows at a time, ``UPDATE_CHUNK``), so the update never holds a float32
     copy of the whole grads tree (bfloat16 grads: twice their size).
+
+    Sharded parameters (``DTensor``s, the moments placed as their
+    parameters by ``launch.shardings.lm_state_sharding``) are updated on
+    each rank's shards: the grads are first placed as their parameters
+    (:func:`follow`), the global norm is taken over the DTensors, and the
+    update runs on ``to_local()`` of parameter, grad and moments, where
+    slicing leading rows is the rank's own (a ``Shard(0)`` DTensor's rows
+    would split unevenly).
     """
     if cfg.name not in ("adamw", "adafactor", "sgd"):
         raise ValueError(cfg.name)
+    if not any(su.is_dtensor(p) for p in tree_mod.leaves(params)):
+        return params, state, _update(grads, state, params, cfg, global_norm(grads))
+    if cfg.name == "adafactor":
+        raise ValueError("adafactor: its factored moments are replicated by the sharding "
+                         "rules; a sharded update needs AdamW or SGD")
+    grads = tree_mod.tree_map(follow, grads, params)
+    gn = global_norm(grads).full_tensor()
+
+    def local(t):
+        return t.to_local() if su.is_dtensor(t) else t
+
+    metrics = _update(tree_mod.tree_map(local, grads), tree_mod.tree_map(local, state),
+                      tree_mod.tree_map(local, params), cfg, gn)
+    return params, state, metrics
+
+
+def _update(grads, state: dict, params, cfg: OptimizerConfig, gn) -> dict:
+    """``update`` on plain tensors, given the grads' global norm ``gn``."""
     state["step"].add_(1)
     step = state["step"]
     lr = schedule(step, cfg)
-    gn = global_norm(grads)
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
@@ -173,4 +207,4 @@ def update(grads, state: dict, params, cfg: OptimizerConfig):
         tree_mod.tree_map(upd, params, grads, state["f"])
     else:
         tree_mod.tree_map(lambda p, g: p.copy_(p.to(torch.float32) - lr * f32(g)), params, grads)
-    return params, state, {"lr": lr, "grad_norm": gn}
+    return {"lr": lr, "grad_norm": gn}

@@ -132,12 +132,19 @@ def test_recsys_cell_matches_repro(shape):
 
 
 def test_variants_and_opt_cell(monkeypatch):
-    """``cost1``/``cost2`` cut the depth and drop the accumulation; the
-    optimizer-only cell updates a bfloat16-moment state (its FULL config
-    swapped for SMOKE's, so it fits the CPU)."""
-    with pytest.raises(NotImplementedError, match="roofline"):
-        steps.build_cell("gcn-cora", "full_graph_sm", reduced=True, variant="chunk4",
-                         device="cpu")
+    """``cost1``/``cost2`` cut the depth and drop the accumulation; the GNN
+    ``chunkN`` variants build MACE with ``edge_chunks=N`` and record it as
+    ``repro`` does (other models build as ``full``); the optimizer-only cell
+    updates a bfloat16-moment state (its FULL config swapped for SMOKE's, so
+    it fits the CPU)."""
+    chunked = steps.build_cell("mace", "molecule", reduced=True, variant="chunk4",
+                               device="cpu")
+    assert chunked.meta["cfg"].edge_chunks == 4
+    assert chunked.loop_correction == {"kind": "gnn_chunked", "chunks": 4,
+                                       "layers": chunked.meta["cfg"].n_layers}
+    gcn4 = steps.build_cell("gcn-cora", "full_graph_sm", reduced=True, variant="chunk4",
+                            device="cpu")
+    assert gcn4.loop_correction == {"kind": "gnn"}
     entry = base.get("qwen3-moe-235b-a22b")
     small = dataclasses.replace(entry, full=dataclasses.replace(entry.smoke, n_layers=3))
     monkeypatch.setattr(steps.cfgbase, "get", lambda name: small)

@@ -526,8 +526,12 @@ def test_all_cells_match_repro():
     assert len(base.all_cells()) == 40
 
 
-def test_shard_axes_are_refused():
-    cfg = dataclasses.replace(base.get("gcn-cora").smoke, shard_axes=("data",))
+def test_shard_axes_are_noops_without_a_mesh():
+    """``shard_axes`` is carried: without a mesh the constraints are no-ops,
+    so the forward equals the unconstrained one bit for bit."""
+    cfg = dataclasses.replace(base.get("gcn-cora").smoke, shard_axes=("data", "model"))
     cell = steps.build_cell("gcn-cora", "full_graph_sm", reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="shard_axes"):
-        steps.GNN_MODULES["gcn"].forward(cell.args[0]["params"], cell.args[1], cfg)
+    fwd = steps.GNN_MODULES["gcn"].forward
+    got = fwd(cell.args[0]["params"], cell.args[1], cfg)
+    want = fwd(cell.args[0]["params"], cell.args[1], base.get("gcn-cora").smoke)
+    assert torch.equal(got, want)

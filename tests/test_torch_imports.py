@@ -102,6 +102,13 @@ def test_sharded_graph_imports_neither_jax_nor_repro(module):
     _imports_alone(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.sharding_utils",
+                                    "repro_torch.launch.shardings", "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.roofline"])
+def test_model_sharding_imports_neither_jax_nor_repro(module):
+    _imports_alone(module)
+
+
 @pytest.mark.parametrize("module", [
     "repro_torch.train.optimizer", "repro_torch.train.loop", "repro_torch.core.tree",
     "repro_torch.models.gnn.common", "repro_torch.models.gnn.gcn",
@@ -136,8 +143,8 @@ def test_chip_smoke_imports_only_the_port():
             mods.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             mods.add(node.module.split(".")[0])
-    assert mods <= {"contextlib", "dataclasses", "json", "os", "shutil", "subprocess", "sys", "time",
-                    "numpy", "torch", "repro_torch"}, mods
+    assert mods <= {"contextlib", "dataclasses", "gc", "json", "os", "shutil", "subprocess", "sys",
+                    "time", "numpy", "torch", "repro_torch"}, mods
 
 
 def test_chip_smoke_fails_without_a_gpu(capsys):

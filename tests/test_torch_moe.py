@@ -117,8 +117,12 @@ def test_expert_capacity_matches_repro():
         assert moe.expert_capacity(*args) == j_moe.expert_capacity(*args)
 
 
-def test_expert_parallel_axes_are_refused():
+def test_expert_parallel_axes_are_noops_without_a_mesh():
+    """``ep_axis`` / ``token_axes`` are carried: on plain tensors (no mesh)
+    they change nothing, bit for bit."""
     x, router, ws, k, cap = _case("routes")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_ffn(torch.from_numpy(x), torch.from_numpy(router), *map(torch.from_numpy, ws),
-                    top_k=k, capacity=cap, ep_axis="data")
+    args = (torch.from_numpy(x), torch.from_numpy(router), *map(torch.from_numpy, ws))
+    out, aux = moe.moe_ffn(*args, top_k=k, capacity=cap, ep_axis="data",
+                           token_axes=("data",), tp_axis="model")
+    want, want_aux = moe.moe_ffn(*args, top_k=k, capacity=cap)
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)

@@ -32,8 +32,8 @@ j_base.all_archs()  # the whole registry, before any single config module loads
 
 F32 = dict(rtol=1e-4, atol=1e-4)
 #: ``repro``'s config fields the port leaves out: the layer scan (a Python
-#: loop in the port) and the mesh's activation sharding
-NOT_CARRIED = {"scan_layers", "batch_axes", "tp_axis"}
+#: loop in the port)
+NOT_CARRIED = {"scan_layers"}
 LARGE_LM_ARCHS = ["qwen2-72b", "mistral-large-123b", "qwen3-moe-235b-a22b", "arctic-480b"]
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 

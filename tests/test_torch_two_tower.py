@@ -137,9 +137,17 @@ def test_loss_and_grads_match_repro(j_cfg):
     assert all(float(g[f"{t}/table"].abs().max()) > 0 for t in ("user", "item"))
 
 
-def test_shard_axes_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(cfgs.SMOKE, shard_axes=("data",))
+def test_shard_axes_are_noops_without_a_mesh():
+    """``shard_axes`` is carried: without a mesh the towers' constraints are
+    no-ops, bit for bit."""
+    cfg = dataclasses.replace(cfgs.SMOKE, shard_axes=("data",))
+    params = tt.init_params(cfgs.SMOKE, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    bags = torch.from_numpy(np.random.default_rng(3).integers(
+        -1, cfgs.SMOKE.n_users, (4, cfgs.SMOKE.n_user_fields, cfgs.SMOKE.bag_size)
+    ).astype(np.int32))
+    got = tt.tower_forward(params["user"], bags, cfg)
+    assert torch.equal(got, tt.tower_forward(params["user"], bags, cfgs.SMOKE))
 
 
 def test_recsys_shapes_match_repro():
