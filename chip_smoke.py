@@ -237,27 +237,41 @@ SNAP's soc-LiveJournal1):
           cut to 2M rows: SHARD_TT_ROWS; the table's rows over "model",
           embedding_bag on each rank's rows), h2o-danube-1.8b train_4k cost2
           (2 microbatches of 2 x 4,096 tokens; FSDP over "data", TP over
-          "model") and prefill_32k cost2 (batch 1, flash_attention on each
-          rank's 16 q / 4 kv heads).  The ranks build at once: each draws
-          the full gcn and h2o cells from the seed and keeps its shards, and
-          only its own rows of two-tower's tables (drawn in seeded blocks of
-          rows); a warm-up step and a timed one (CUDA events, peak,
-          collective bytes and counts by kind, kernel launches, which must
-          be above 0 on every rank).  Held against the same cells run
-          unsharded on the card in a process of their own: the losses; the
-          float32 cells' first grads and their parameters after the two
-          steps, each leaf's RMS distance and the share of elements beyond
-          ROADMAP.md section 3's elementwise tolerances within the cell's
-          limits (SHARD_F32_LIMITS); the bf16 train cell's parameters (each
+          "model"), prefill_32k cost2 (batch 1, flash_attention on each
+          rank's 16 q / 4 kv heads), h2o-danube-1.8b decode_32k cost2
+          (batch 128, 64 a data rank, against the 4,096-slot bf16 ring
+          filled from the seed, 2,048 slots a model rank: context-parallel
+          decode, each rank's slice merged by one all-reduce max and one
+          sum a layer; a timed step at position 32,768, the ring wrapped,
+          and one at 1,500, the live prefix in model rank 0's slice) and
+          gcn-cora x minibatch_lg (the 114.6M-edge CSR, 1,024 seeds over
+          every axis sampled 15-10 on each rank, the picks all-gathered,
+          the subgraph placed over every axis, edge_segment_runs on each
+          rank's edges).  The ranks build at once: each draws the full
+          gcn, h2o and sampled cells from the seed and keeps its shards,
+          and only its own rows of two-tower's tables (drawn in seeded
+          blocks of rows); a warm-up step and a timed one (CUDA events,
+          peak, collective bytes and counts by kind, kernel launches,
+          which must be above 0 on every rank).  Held against the same
+          cells run unsharded on the card in a process of their own: the
+          losses; the float32 cells' first grads and their parameters
+          after the two steps, each leaf's RMS distance and the share of
+          elements beyond ROADMAP.md section 3's elementwise tolerances
+          within the cell's limits (SHARD_F32_LIMITS; the sampled cell
+          gcn's, its subgraph bit for bit); the decode steps' logits and
+          written slots by section 3's bf16 bound against the unsharded
+          float32 decode (every slot no step wrote bit for bit as drawn);
+          the bf16 train cell's parameters (each
           leaf within a quarter of its change); the prefill's logits
           (section 3's bf16 bound against the unsharded model through the
           plain attention, and against the same sharded model through the
           plain attention).  The same cells dry-run on a fake
           (2, 2) mesh (launch.dryrun) give the ranks' argument and
           collective bytes exactly; the production 16x16 dry run of
-          h2o-danube-1.8b train_4k (cost2/cost4/opt1/opt2) and mace x
-          ogb_products (chunk2/chunk4) prints their roofline terms
-          (launch.roofline: H100 data-sheet constants, modelled)
+          h2o-danube-1.8b train_4k (cost2/cost4/opt1/opt2), mace x
+          ogb_products (chunk2/chunk4), h2o-danube-1.8b decode_32k
+          (cost2/cost4) and gcn-cora x minibatch_lg prints their roofline
+          terms (launch.roofline: H100 data-sheet constants, modelled)
 
 then holds each kernel against its plain PyTorch version at the shapes its
 path gave it and times both.  The line before the last is
@@ -414,7 +428,12 @@ TT_ROWS, TT_BATCH, TT_STEPS = 5_000_000, 16_384, 2
 #: ogb_products, two-tower train_batch, h2o-danube-1.8b train_4k and
 #: prefill_32k at cost2)
 SHARD_MESH, SHARD_AXES, SHARD_TIMEOUT_S = (2, 2), ("data", "model"), 600
-SHARD_CELLS = ("gcn", "two_tower", "train", "prefill")
+SHARD_CELLS = ("gcn", "two_tower", "train", "prefill", "decode", "sampled")
+#: the decode cell (h2o-danube-1.8b decode_32k cost2, batch 128 against the
+#: 4,096-slot ring, 2,048 slots a "model" rank): a warm-up step and the
+#: first timed step at position 32,768 (the ring full and wrapped: slot 0),
+#: the second at 1,500 (the live prefix ends inside model rank 0's slice)
+SHARD_DECODE_POSITIONS = (32_768, 1_500)
 #: two-tower's vocabularies in the model_shard phase, cut from lm_train's
 #: 5M rows because the 4 ranks share one 80 GB card: at 5M a rank holds
 #: 20.5 GB (its table shards, their float32 moments and dense grads), 82 GB
@@ -442,12 +461,16 @@ SHARD_F32_LIMITS = {
     "two_tower": {"grad_rms": 3e-3, "grad_share": 5e-3, "param_share": 1e-4,
                   "param_step": 1.6e-2},
 }
+#: the sampled cell (gcn-cora minibatch_lg, float32) is held to gcn's limits
+SHARD_F32_LIMITS["sampled"] = SHARD_F32_LIMITS["gcn"]
 #: the bfloat16 train cell: each leaf's RMS distance from the unsharded run
 #: at most this share of its RMS change over the two steps
 SHARD_BF16_STEP_RATIO = 0.25
 #: the production-mesh dry run whose roofline rows the phase prints
 SHARD_ROOFLINE = (("h2o-danube-1.8b", "train_4k", ("cost2", "cost4", "opt1", "opt2")),
-                  ("mace", "ogb_products", ("chunk2", "chunk4")))
+                  ("mace", "ogb_products", ("chunk2", "chunk4")),
+                  ("h2o-danube-1.8b", "decode_32k", ("cost2", "cost4")),
+                  ("gcn-cora", "minibatch_lg", ("full",)))
 #: sampled table-grad rows held against the plain bag's step
 TT_GRAD_ROWS = 256
 #: a train step through the bag kernel against the same through the plain
@@ -2926,6 +2949,24 @@ def shard_cell_program(name: str, dev, data_axes: tuple, own_rows: bool = False)
                                                   cell.meta["opt_cfg"], grad_accum=H2O_ACCUM)
         cell.args = (state, batch)
         return cell, "h2o-danube-1.8b", "train_4k", None
+    if name == "sampled":
+        cell = steps.build_cell("gcn-cora", "minibatch_lg", device=dev, seed=SEED,
+                                data_axes=data_axes)
+        cfg = dataclasses.replace(cell.meta["cfg"], backend="cuda")
+        loss_fn = cell.meta["module"].loss_fn  # not ``cell``: the ranks free the drawn batch
+        inner = train_loop.make_train_step(lambda p, b: loss_fn(p, b, cfg), steps.OPT_CFG,
+                                           compress_fn=seen)
+        graph = cell.meta["graph"]
+        cell.step_fn = lambda state, batch: inner(state, graph(batch))
+        cell.meta["grad_hook"] = hook
+        return cell, "gcn-cora", "minibatch_lg", "edge_segment_runs"
+    if name == "decode":
+        cell = steps.build_cell("h2o-danube-1.8b", "decode_32k", variant="cost2", device=dev,
+                                seed=SEED, data_axes=data_axes)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        for buf in (cell.args[1]["k"], cell.args[1]["v"]):  # every slot holds K/V
+            buf.normal_(generator=gen)
+        return cell, "h2o-danube-1.8b", "decode_32k", None
     cell = steps.build_cell("h2o-danube-1.8b", "prefill_32k", variant="cost2", device=dev,
                             seed=SEED, data_axes=data_axes)
     cell.args = (cell.args[0], cell.args[1][:PREFILL_BATCH])
@@ -2933,12 +2974,41 @@ def shard_cell_program(name: str, dev, data_axes: tuple, own_rows: bool = False)
     return cell, "h2o-danube-1.8b", "prefill_32k", "flash_attention"
 
 
+def decode_refs(cell, root: str) -> dict:
+    """The decode cell unsharded (bfloat16 compute) through the ranks' steps
+    (a warm-up and SHARD_DECODE_POSITIONS), each timed step beside a
+    float32-compute step on a copy of the cache as it stood: the float32
+    logits and both written slots ([L, B, Hkv, Dh]) written under ``root``
+    (``decode_<j>.pt``) -> the bf16 logits' RMS distance from the f32 ones
+    a step."""
+    params, cache, toks = cell.args
+    step16 = cell.step_fn
+    step32 = cell.meta["make_step"](compute_dtype=torch.float32)
+    pos = SHARD_DECODE_POSITIONS
+    step16(params, {**cache, "pos": pos[0]}, toks)  # the ranks' warm-up
+    rms = []
+    for j, p_ in enumerate(pos):
+        twin = {k_: cache[k_].clone() for k_ in ("k", "v")}
+        l32 = step32(params, {**twin, "pos": p_}, toks)[0].float()
+        l16 = step16(params, {**cache, "pos": p_}, toks)[0]
+        slot = p_ % cache["k"].shape[3]
+        torch.save({"logits32": l32.cpu(),
+                    "slot32": {k_: twin[k_][:, :, :, slot].cpu() for k_ in twin},
+                    "slot16": {k_: cache[k_][:, :, :, slot].cpu() for k_ in twin}},
+                   os.path.join(root, f"decode_{j}.pt"))
+        rms.append(float(torch.sqrt(torch.mean((l16.float() - l32) ** 2))))
+        del twin, l32, l16
+    return {"plain_rms": rms, "slot_numel": 2 * cache["k"][:, :, :, 0].numel()}
+
+
 def shard_refs(root: str) -> dict:
     """The model_shard cells run unsharded on the card from the same seed
-    (the same two steps; the prefill's logits through the plain attention
-    in float32 and in bfloat16), written under ``root`` for the ranks, in
-    a process of its own (its memory goes with it): -> each cell's losses
-    and the prefill's plain-attention RMS distance."""
+    (the same two steps and the sampled cell's subgraph; the prefill's
+    logits through the plain attention in float32 and in bfloat16; the
+    decode steps, ``decode_refs``), written under ``root`` for the ranks,
+    in a process of its own (its memory goes with it): -> each cell's
+    losses and the prefill's and decode steps' bf16 RMS distances from
+    float32."""
     from repro_torch.core import tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2947,7 +3017,9 @@ def shard_refs(root: str) -> dict:
     for name in SHARD_CELLS:
         torch.cuda.empty_cache()
         cell, *_ = shard_cell_program(name, dev, ())
-        if name == "prefill":
+        if name == "decode":
+            out[name] = decode_refs(cell, root)
+        elif name == "prefill":
             params, toks = cell.args
             ref32 = cell.meta["make_step"]("torch", attn_impl="flash",
                                            compute_dtype=torch.float32)(params, toks).float()
@@ -2966,6 +3038,10 @@ def shard_refs(root: str) -> dict:
                     cell.meta["grad_hook"]["fn"] = None
                     return grads
                 cell.meta["grad_hook"]["fn"] = keep
+            if name == "sampled":  # the subgraph, for the ranks' gathered one
+                torch.save({k: v.cpu() for k, v in cell.meta["graph"](cell.args[1]).items()
+                            if isinstance(v, torch.Tensor)},
+                           os.path.join(root, "sampled_subgraph.pt"))
             losses = [float(cell.step_fn(*cell.args)[1]["loss"]) for _ in range(2)]
             torch.save({k: v.detach().cpu() for k, v in tree.paths(cell.args[0]["params"])},
                        os.path.join(root, f"{name}.pt"))
@@ -3087,6 +3163,11 @@ def model_shard_cell(rank_mesh, dm, name: str, root: str, grad_max: dict) -> dic
         card_free_gb=f"{torch.cuda.mem_get_info()[0] / 1e9:.2f}")
     tdist.barrier()
     rec = {"argument_bytes": dryrun.arg_bytes(sharded.args)}
+    if name == "decode":
+        rec.update(model_shard_decode(sharded, root))
+        return rec
+    if name == "sampled":
+        rec["subgraph"], rec["subgraph_placements"] = hold_subgraph(sharded, dm, root)
     if name in SHARD_F32_LIMITS:
         def hold(grads):  # the warm-up step's grads, placed as their parameters
             params = sharded.args[0]["params"]
@@ -3131,6 +3212,98 @@ def model_shard_cell(rank_mesh, dm, name: str, root: str, grad_max: dict) -> dic
     return rec
 
 
+def hold_subgraph(sharded, dm, root: str) -> tuple:
+    """The sampled cell's subgraph on this rank (the sampler on the mesh,
+    its picks gathered, each subgraph tensor placed over every axis):
+    every tensor's shard against the unsharded run's, bit for bit (ids
+    below 2^24 compare exactly as float32) -> (``hold_shard``'s records,
+    the edges' placements)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import sharding_utils as su
+
+    with su.use_mesh(dm), implicit_replication():
+        sub = sharded.meta["graph"](sharded.args[1])
+    ref = torch.load(os.path.join(root, "sampled_subgraph.pt"), mmap=True)
+    if sorted(ref) != sorted(k_ for k_, v_ in sub.items() if isinstance(v_, torch.Tensor)):
+        raise AssertionError(f"model_shard/sampled: subgraph keys {sorted(sub)} vs {sorted(ref)}")
+    out = {}
+    for k_, v_ in ref.items():
+        d = sub[k_]
+        if not su.is_dtensor(d) or d.dtype != v_.dtype or tuple(d.shape) != tuple(v_.shape):
+            raise AssertionError(f"model_shard/sampled: subgraph {k_} is {type(d).__name__} "
+                                 f"{d.dtype} {tuple(d.shape)}, the unsharded {v_.dtype} "
+                                 f"{tuple(v_.shape)}")
+        out[k_] = hold_shard(d, v_, 0.0, 0.0)
+    return out, str(tuple(sub["edge_dst"].placements))
+
+
+def model_shard_decode(sharded, root: str) -> dict:
+    """The decode cell's steps on this rank: a warm-up at the first of
+    SHARD_DECODE_POSITIONS, then a timed step at each (CUDA events; the
+    first counted by ``LocalCounter``, as the dry run's one step).  Held
+    after each against ``decode_refs``' files: the logits' shard (its
+    squared distance from the float32 logits), and on the rank whose
+    sequence slice holds the step's slot, that slot's batch shard (its
+    squared distance from the float32 step's slot, the unsharded bf16
+    step's own, and its elements bit-equal to the unsharded bf16 slot);
+    after both, every other slot of this rank's slice bit for bit as drawn."""
+    import torch.distributed as tdist
+
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding_utils as su
+
+    params, cache, toks = sharded.args
+    init = {k_: cache[k_].to_local().clone() for k_ in ("k", "v")}
+    s_lo, b_lo = su.local_offset(cache["k"], 3), su.local_offset(cache["k"], 1)
+    s_n, b_n = init["k"].shape[3], init["k"].shape[1]
+    ring = cache["k"].shape[3]
+    torch.cuda.reset_peak_memory_stats()
+    sharded.step_fn(params, {**cache, "pos": SHARD_DECODE_POSITIONS[0]}, toks)  # warm-up
+    phase = dict.fromkeys(KERNELS, 0)
+    rec = {"steps": [], "owned_slots": []}
+    for j, p_ in enumerate(SHARD_DECODE_POSITIONS):
+        ev = event_pair()
+        tdist.barrier()
+        counter = dryrun.LocalCounter() if j == 0 else contextlib.nullcontext()
+        with counted(KERNELS, phase), counter:
+            ev[0].record()
+            logits, cache = sharded.step_fn(params, {**cache, "pos": p_}, toks)
+            ev[1].record()
+        torch.cuda.synchronize()
+        if j == 0:
+            rec.update(collectives=counter.collectives(), flops=counter.flops)
+        ref = torch.load(os.path.join(root, f"decode_{j}.pt"), mmap=True)
+        step = {"ms": ev[0].elapsed_time(ev[1]),
+                "logits": hold_shard(logits, ref["logits32"], 0.0, float("inf"))}
+        slot = p_ % ring
+        if s_lo <= slot < s_lo + s_n:
+            rec["owned_slots"].append(slot)
+            sq = sq16 = same = n = 0.0
+            for k_ in ("k", "v"):
+                mine = cache[k_].to_local()[:, :, :, slot - s_lo].float()
+                r32 = ref["slot32"][k_][:, b_lo:b_lo + b_n].to(mine.device).float()
+                r16 = ref["slot16"][k_][:, b_lo:b_lo + b_n].to(mine.device).float()
+                sq += float(((mine - r32).double() ** 2).sum())
+                sq16 += float(((r16 - r32).double() ** 2).sum())
+                same += int((mine == r16).sum())
+                n += mine.numel()
+            step["slot"] = {"sq": sq, "sq16": sq16, "same": same, "n": n}
+        rec["steps"].append(step)
+    bad = 0
+    for k_ in ("k", "v"):
+        keep = [i_ for i_ in range(s_n) if s_lo + i_ not in
+                {p_ % ring for p_ in SHARD_DECODE_POSITIONS}]
+        now = cache[k_].to_local()
+        bad += int((now[:, :, :, keep] != init[k_][:, :, :, keep]).sum())
+    rec.update(step_ms=rec["steps"][0]["ms"], short_step_ms=rec["steps"][1]["ms"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, unwritten_changed=bad,
+               launches={k_: v_ for k_, v_ in phase.items() if v_},
+               placements=str(tuple(cache["k"].placements)))
+    return rec
+
+
 def model_shard_dryrun(which: str, root: str) -> list:
     """The dry run in its own process (a fake process group: each call of
     the phase gets a fresh one).  ``"mesh"``: the phase's cells on a fake
@@ -3160,7 +3333,7 @@ def model_shard_dryrun(which: str, root: str) -> list:
     rows = []
     roofline.RESULTS_DIR = root
     for arch, shape, variants in SHARD_ROOFLINE:
-        lc = None
+        lc = full = None
         for v in variants:
             rec = dryrun.run_cell(arch, shape, mesh=mesh, variant=v)
             if rec["status"] != "ok":
@@ -3169,13 +3342,54 @@ def model_shard_dryrun(which: str, root: str) -> list:
             with open(dryrun.result_path(arch, shape, v, False, root=root), "w") as f:
                 json.dump(rec, f)
             lc = lc or (rec["loop_correction"] if not v.startswith("opt") else None)
+            if v == "full":
+                full = rec
             rows.append({"arch": arch, "shape": shape, "variant": v,
                          "trace_s": rec["trace_s"],
                          "peak_gb": f"{rec['memory']['peak_bytes'] / 1e9:.3f}",
                          "flops": f"{rec['cost']['flops']:.4e}"})
-        step = roofline.costs_from(arch, shape, lc)
+        step = roofline.costs_from(arch, shape, lc, full)
         rows.append({"arch": arch, "shape": shape, **roofline.terms(arch, shape, step)})
     return rows
+
+
+def hold_decode(recs: list, ref: dict, line: dict, failed: list) -> None:
+    """The decode cell's checks over its ranks' records (rank order), into
+    ``line`` and ``failed``: for each timed step, the logits' RMS distance
+    from the unsharded float32 decode at most LM_BF16_RMS_RATIO x the
+    unsharded bf16 decode's (ROADMAP.md section 3's bf16 standard; every
+    rank holds a distinct shard), and the written slot's the same against
+    the unsharded bf16 step's (its bit-equal share beside it); no other slot
+    changed on any rank."""
+    for j, p_ in enumerate(SHARD_DECODE_POSITIONS):
+        steps_ = [r_["steps"][j] for r_ in recs]
+        rms = float(np.sqrt(sum(s_["logits"]["sq"] for s_ in steps_)
+                            / sum(s_["logits"]["n"] for s_ in steps_)))
+        base = ref["plain_rms"][j]
+        slots = [s_["slot"] for s_ in steps_ if "slot" in s_]
+        n = sum(s_["n"] for s_ in slots)
+        slot_rms = float(np.sqrt(sum(s_["sq"] for s_ in slots) / n))
+        slot_base = float(np.sqrt(sum(s_["sq16"] for s_ in slots) / n))
+        tag = f"pos{p_}"
+        line.update({f"{tag}_rms_vs_f32": f"{rms:.4e}", f"{tag}_unsharded_rms_vs_f32": f"{base:.4e}",
+                     f"{tag}_ratio": f"{rms / base:.4f}" if base else "inf",
+                     f"{tag}_slot_rms_vs_f32": f"{slot_rms:.4e}",
+                     f"{tag}_slot_unsharded_rms_vs_f32": f"{slot_base:.4e}",
+                     f"{tag}_slot_bit_equal_share": f"{sum(s_['same'] for s_ in slots) / n:.4f}",
+                     f"{tag}_slot_owners": sum(1 for s_ in steps_ if "slot" in s_)})
+        if not rms <= LM_BF16_RMS_RATIO * base:
+            failed.append(f"model_shard/decode pos {p_}: logits' RMS distance {rms} from the "
+                          f"f32 decode exceeds {LM_BF16_RMS_RATIO} x the unsharded bf16's {base}")
+        if n != ref["slot_numel"] or not slot_rms <= LM_BF16_RMS_RATIO * slot_base:
+            failed.append(f"model_shard/decode pos {p_}: written slot ({n} elements held) at "
+                          f"RMS {slot_rms} from the f32 decode's, over {LM_BF16_RMS_RATIO} x "
+                          f"the unsharded bf16's {slot_base}")
+    changed = [r_["unwritten_changed"] for r_ in recs]
+    line["unwritten_slots_changed"] = "/".join(map(str, changed))
+    line["short_step_ms"] = "/".join(f"{r_['short_step_ms']:.2f}" for r_ in recs)
+    line["placements"] = f"'{recs[0]['placements']}'"
+    if any(changed):
+        failed.append(f"model_shard/decode: slots no step wrote changed {changed}")
 
 
 def model_shard_phase(launches: dict, times: dict, dev, card: str) -> None:
@@ -3233,7 +3447,7 @@ def model_shard_phase(launches: dict, times: dict, dev, card: str) -> None:
             if rec["collectives"]["total_bytes"] != dr["collectives"]["total_bytes"]:
                 failed.append(f"{what}: collectives {rec['collectives']} vs the dry run's "
                               f"{dr['collectives']}")
-            if name != "prefill":
+            if name not in ("prefill", "decode"):
                 # bfloat16 compute (train): the loss within 2^-7; float32: 1e-4
                 want, rtol = refs[name]["losses"][1], 2.0**-7 if name == "train" else 1e-4
                 if abs(rec["loss"] - want) > rtol * abs(want):
@@ -3261,7 +3475,9 @@ def model_shard_phase(launches: dict, times: dict, dev, card: str) -> None:
                         acc[f_] = max(acc[f_], x_) if f_ == "max_abs" else acc[f_] + x_
             return out
 
-        if name == "prefill":
+        if name == "decode":
+            hold_decode(recs, refs[name], line, failed)
+        elif name == "prefill":
             # ROADMAP.md §3's bf16-model bound on the sharded model: its
             # logits' RMS distance from the f32 model (unsharded, plain
             # attention) at most LM_BF16_RMS_RATIO x that of the unsharded
@@ -3296,6 +3512,14 @@ def model_shard_phase(launches: dict, times: dict, dev, card: str) -> None:
                 if far:
                     failed.append(f"model_shard/train: leaves beyond {SHARD_BF16_STEP_RATIO} of "
                                   f"their change: {far}")
+        if name == "sampled":
+            sub = leaf_sums("subgraph")
+            line["subgraph_elements_checked"] = int(sum(v_["n"] for v_ in sub.values()))
+            line["subgraph_placements"] = f"'{recs[0]['subgraph_placements']}'"
+            off = {k_: v_ for k_, v_ in sub.items() if v_["bad"] or v_["max_abs"]}
+            if off:
+                failed.append(f"model_shard/sampled: the subgraph differs from the unsharded "
+                              f"one: {off}")
         if name in SHARD_F32_LIMITS:
             lim = SHARD_F32_LIMITS[name]
             grads = leaf_sums("grads")

@@ -344,7 +344,14 @@ def _gnn_sampled_cell(entry, cfg, shape, *, reduced, variant, device, generator)
     def graph(batch):
         """The step's subgraph: the sampler seeded with ``batch["key"]``
         (the same subgraph for the same batch, as ``repro``'s fixed key),
-        or fed the per-hop uniforms ``batch["draws"]`` where given."""
+        or fed the per-hop uniforms ``batch["draws"]`` where given.
+
+        Under a mesh (sharded seeds) the sampler returns the global layers
+        on every rank (``neighbor.sample_subgraph``); the subgraph's edges,
+        ids and masks, built from them as unsharded, are then placed by
+        ``gnn_batch_sharding`` (a local slice of each), and its node arrays
+        gathered from the batch's sharded rows by ``common.gather``'s site
+        (the rows all-gathered, each rank indexing its own ids)."""
         dev = batch["seeds"].device
         gen = torch.Generator(device=dev).manual_seed(int(batch["key"]))
         blocks, layers, _ = neighbor.sample_subgraph(
@@ -357,20 +364,28 @@ def _gnn_sampled_cell(entry, cfg, shape, *, reduced, variant, device, generator)
         # masked edges carry the sink n_sub, between valid ones
         g = {"edge_src": torch.where(em, esrc, n_sub), "edge_dst": torch.where(em, edst, n_sub)}
         idx = torch.clamp(nodes, 0, n - 1)
-        g["node_feat"] = batch["node_feat"].index_select(0, idx)
+        seed_mask = torch.arange(n_sub, device=dev) < seeds_n
         if entry.model in ("mace", "schnet"):
-            g["positions"] = batch["positions"].index_select(0, idx)
             g["graph_ids"] = torch.zeros((n_sub,), dtype=torch.int32, device=dev)
             g["n_graphs"] = 1
             g["labels"] = torch.zeros((1,), dtype=torch.float32, device=dev)
+        if su.is_dtensor(batch["seeds"]):
+            g, idx, seed_mask = _placed_subgraph(batch["seeds"].device_mesh,
+                                                 (g, idx, seed_mask))
+
+        def rows(key):
+            return common.gather(batch[key], idx) if su.is_dtensor(idx) \
+                else batch[key].index_select(0, idx)
+
+        g["node_feat"] = rows("node_feat")
+        if entry.model in ("mace", "schnet"):
+            g["positions"] = rows("positions")
         elif entry.model == "graphcast":
-            g["positions"] = batch["positions"].index_select(0, idx)
-            g["labels"] = batch["labels"].index_select(0, idx)
+            g["positions"] = rows("positions")
+            g["labels"] = rows("labels")
         else:
-            lab = batch["labels"].index_select(0, idx)
             # supervise seeds only
-            seed_mask = torch.arange(n_sub, device=dev) < seeds_n
-            g["labels"] = torch.where(seed_mask, lab, -1)
+            g["labels"] = torch.where(seed_mask, rows("labels"), -1)
         return g
 
     def make_step(backend):
@@ -436,6 +451,23 @@ def _gnn_sampled_cell(entry, cfg, shape, *, reduced, variant, device, generator)
               "graph": graph, "make_step": make_step},
         loop_correction={"kind": "gnn"},
     )
+
+
+def _placed_subgraph(mesh, trees):
+    """``trees`` of plain tensors, equal on every rank, as ``DTensor``s placed
+    by ``gnn_batch_sharding`` (node/edge dim over every axis, where it
+    divides): each rank keeps its slice, no collective."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = [Replicate()] * mesh.ndim
+
+    def place(x, pl):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return DTensor.from_local(x, mesh, rep, run_check=False).redistribute(mesh, pl)
+
+    return tuple(tree_mod.tree_map(place, t, shard_mod.gnn_batch_sharding(t, mesh))
+                 for t in trees)
 
 
 # ---------------------------------------------------------------------------
@@ -623,5 +655,6 @@ def shard_cell(cell: CellProgram, placements: tuple, mesh) -> CellProgram:
 
     meta = dict(cell.meta)
     if "make_step" in meta:
-        meta["make_step"] = lambda *a, **k: on_mesh(cell.meta["make_step"](*a, **k))
+        make = meta["make_step"]  # not ``cell``, whose drawn args it would keep alive
+        meta["make_step"] = lambda *a, **k: on_mesh(make(*a, **k))
     return dataclasses.replace(cell, step_fn=on_mesh(cell.step_fn), args=args, meta=meta)

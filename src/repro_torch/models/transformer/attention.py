@@ -126,4 +126,80 @@ def _sharded_attention(q, k, v, *, batch_axes, tp_axis, **kw):
     return site(q, k, v)
 
 
-decode_attention = fa_ops.decode_attention
+def decode_attention(q, k, v, kv_len, *, window: int = 0):
+    """Single-token decode against the live prefix of a KV cache: q
+    [B,Hq,1,D], k/v [B,Hkv,S,D] -> [B,Hq,1,D] (``kv_len`` the global live
+    count).  A ``DTensor`` cache goes through :func:`_sharded_decode_attention`,
+    a plain one through ``fa_ops.decode_attention``."""
+    if sharding_utils.is_dtensor(k):
+        return _sharded_decode_attention(q, k, v, kv_len, window=window)
+    return fa_ops.decode_attention(q, k, v, kv_len, window=window)
+
+
+def _sharded_decode_attention(q, k, v, kv_len, *, window: int = 0):
+    """Context-parallel decode (flash-decoding) on each rank's cache slice
+    (``local_map``), as ``repro``'s GSPMD lowering reduces a sequence-sharded
+    cache.
+
+    Placement rule: the cache is ``Shard(0)`` (batch), ``Shard(2)``
+    (sequence) or ``Replicate()`` on each mesh dim, k and v alike; any
+    other placement raises.  q is redistributed to the cache's batch shards
+    and replicated elsewhere (its heads gathered: B_local·Hq·D values, and
+    partial sums of the projection reduced).  Each rank computes its
+    slice's float32 partials (``fa_ops.decode_attention_partials``, masked
+    by the global slot id) and merges them over the sequence's mesh dims
+    with one all-reduce max of m and one all-reduce sum of (o, l), in
+    float32.  The output, placed as q, then keeps only this rank's heads on
+    those mesh dims where they divide (a local slice, no collective): the
+    heads ``wo``'s row-parallel product takes.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    kv_pl = tuple(k.placements)
+    for p in kv_pl:
+        if not (p.is_replicate() or p.is_shard(0) or p.is_shard(2)):
+            raise ValueError(f"decode attention: cache placed {kv_pl}; each mesh dim must "
+                             f"shard its batch (0) or sequence (2), or replicate")
+    if tuple(v.placements) != kv_pl:
+        raise ValueError(f"decode attention: k placed {kv_pl}, v {tuple(v.placements)}")
+    q_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in kv_pl)
+    if tuple(q.placements) != q_pl:
+        q = q.redistribute(mesh, q_pl)
+    seq_dims = [i for i, p in enumerate(kv_pl) if p.is_shard(2)]
+    sharding_utils.requires_even(k, 2, "decode attention")
+    s_offset = sharding_utils.local_offset(k, 2)
+    groups = [mesh.get_group(i).group_name for i in seq_dims]
+
+    def site(q_, k_, v_):
+        m, l, o = fa_ops.decode_attention_partials(q_, k_, v_, kv_len, s_offset=s_offset,
+                                                   window=window)
+        if groups:
+            big_m = m
+            for g in groups:
+                big_m = _all_reduce(big_m, "max", g)
+            w = torch.exp(m - big_m)
+            ol = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+            for g in groups:
+                ol = _all_reduce(ol, "sum", g)
+            o, l = ol[..., :-1], ol[..., -1]
+        out = o / torch.clamp(l, min=1e-30)[..., None]
+        return out[:, :, None].to(q_.dtype)
+
+    out = local_map(site, out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
+                    device_mesh=mesh)(q, k, v)
+    ways = 1
+    for i in seq_dims:
+        ways *= mesh.size(i)
+    if seq_dims and q.shape[1] % ways == 0:
+        heads = tuple(Shard(1) if i in seq_dims else p for i, p in enumerate(q_pl))
+        out = out.redistribute(mesh, heads)
+    return out
+
+
+def _all_reduce(t, op: str, group_name: str):
+    """``t`` all-reduced with ``op`` over a process group: the functional
+    collective DTensor issues (so the dry run's counters see it)."""
+    fc = torch.ops._c10d_functional
+    return fc.wait_tensor(fc.all_reduce(t.contiguous(), op, group_name))

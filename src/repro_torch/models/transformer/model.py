@@ -196,11 +196,15 @@ def _layers(params: Params) -> list[dict]:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _qkv(lp, h, cfg: TransformerConfig):
+def _plain_proj(a, w, cd):
+    return a @ w.to(cd)
+
+
+def _qkv(lp, h, cfg: TransformerConfig, proj=_plain_proj):
     cd = cfg.compute_dtype
-    q = h @ lp["wq"].to(cd)
-    k = h @ lp["wk"].to(cd)
-    v = h @ lp["wv"].to(cd)
+    q = proj(h, lp["wq"], cd)
+    k = proj(h, lp["wk"], cd)
+    v = proj(h, lp["wv"], cd)
     if cfg.qkv_bias:
         q = q + lp["bq"].to(cd)
         k = k + lp["bk"].to(cd)
@@ -308,19 +312,55 @@ def _merge_heads(o):
                      in_placements=(pl,), device_mesh=o.device_mesh)(o)
 
 
-def _swiglu(h, w1, w3, w2, cd):
-    return _row_parallel(F.silu(h @ w1.to(cd)) * (h @ w3.to(cd)), w2, cd)
+def _column_parallel(a, w, cd):
+    """``a @ w.to(cd)`` with no partial sums.  Under a mesh ``w``'s rows (the
+    contraction) are gathered (the FSDP all-gather) and its columns stay
+    sharded; each rank multiplies its rows of ``a`` by its columns
+    (``local_map``), so the output is rounded to ``cd`` once, as the
+    unsharded product is.  (Left to DTensor, a decode-sized ``a`` is
+    resharded onto the contraction instead, and its bfloat16 partial sums
+    are reduced after rounding.)
+
+    Placement rule: ``w`` ``Shard(1)`` where it is column-sharded and
+    ``Replicate()`` elsewhere; ``a`` replicated on those mesh dims and
+    where it is partial or shards its last dim, else placed as it is
+    (``Shard`` of a leading dim, or ``Replicate()``); the output is
+    ``Shard(last)`` on the columns' mesh dims and placed as ``a`` elsewhere.
+    Forward only (decode).
+    """
+    if not su.is_dtensor(a):
+        return a @ w.to(cd)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = a.device_mesh, a.ndim - 1
+    w = w.to(cd)
+    w_pl = tuple(Shard(1) if p.is_shard(1) else Replicate() for p in w.placements)
+    if tuple(w.placements) != w_pl:
+        w = w.redistribute(mesh, w_pl)
+    a_pl = tuple(Replicate() if wp.is_shard() or p.is_partial() or p.is_shard(last) else p
+                 for p, wp in zip(a.placements, w_pl))
+    if tuple(a.placements) != a_pl:
+        a = a.redistribute(mesh, a_pl)
+    out_pl = [Shard(last) if wp.is_shard() else p for p, wp in zip(a_pl, w_pl)]
+    return local_map(lambda a_, w_: a_ @ w_, out_placements=out_pl,
+                     in_placements=(a_pl, w_pl), device_mesh=mesh)(a, w)
 
 
-def _ffn(lp, h, cfg: TransformerConfig, capacity_factor=None):
+def _swiglu(h, w1, w3, w2, cd, proj=_plain_proj):
+    return _row_parallel(F.silu(proj(h, w1, cd)) * proj(h, w3, cd), w2, cd)
+
+
+def _ffn(lp, h, cfg: TransformerConfig, capacity_factor=None, proj=_plain_proj):
     """The FFN of normed tokens h [B, S, D] -> (out [B, S, D], aux): dense,
     or routed experts (+ the dense residual); ``capacity_factor`` overrides
-    the config's (decode: 2.0)."""
+    the config's (decode: 2.0); ``proj`` is the column-parallel product of
+    the dense units (decode: :func:`_column_parallel`)."""
     b, s, d = h.shape
     cd = cfg.compute_dtype
     m = cfg.moe
     if m is None:
-        return _swiglu(h, lp["w1"], lp["w3"], lp["w2"], cd), None
+        return _swiglu(h, lp["w1"], lp["w3"], lp["w2"], cd, proj), None
     cap = moe_mod.expert_capacity(b * s, m.n_experts, m.top_k,
                                   capacity_factor or m.capacity_factor)
     # decode routes without expert parallelism, as repro's decode does
@@ -330,7 +370,7 @@ def _ffn(lp, h, cfg: TransformerConfig, capacity_factor=None):
                                ep_axis=ep, token_axes=(), tp_axis=cfg.tp_axis)
     out = out.reshape(b, s, d)
     if m.dense_residual_ff:
-        out = out + _swiglu(h, lp["dw1"], lp["dw3"], lp["dw2"], cd)
+        out = out + _swiglu(h, lp["dw1"], lp["dw3"], lp["dw2"], cd, proj)
     return out, aux
 
 
@@ -352,11 +392,11 @@ def _layer(lp, x, positions, cfg: TransformerConfig):
     return _boundary_constraint(x + out, cfg), aux
 
 
-def _logits(params: Params, x, cfg: TransformerConfig):
+def _logits(params: Params, x, cfg: TransformerConfig, proj=_plain_proj):
     cd = cfg.compute_dtype
     x = rms_norm(x, params["ln_f"].to(cd), cfg.norm_eps)
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return x @ unembed.to(cd)
+    return proj(x, unembed, cd)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig):
@@ -468,6 +508,13 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor, cfg: Transfor
     written into ``cache["k"]`` / ``cache["v"]`` in place; the returned
     cache holds the same buffers and ``pos + 1``.  MoE layers route each
     sequence's token at capacity factor 2.0.
+
+    Under a mesh (a ``DTensor`` cache, ``launch.shardings.lm_cache_sharding``:
+    batch over the data axes, sequence over ``"model"``) decode is
+    context-parallel: the rank whose sequence slice holds the slot writes
+    it (:func:`_write_slot`), attention merges each rank's slice
+    (``attention.decode_attention``), and the column-parallel products
+    gather their weights' rows (:func:`_column_parallel`).
     """
     cd = cfg.compute_dtype
     b = tokens.shape[0]
@@ -475,26 +522,80 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor, cfg: Transfor
     k_all, v_all, pos = cache["k"], cache["v"], int(cache["pos"])
     cache_len = k_all.shape[3]
     slot = pos % cache_len if cfg.sliding_window > 0 else min(pos, cache_len - 1)
-    slot_idx = torch.tensor([slot], device=k_all.device)
     live = min(pos + 1, cache_len)
 
     x = su.maybe_constrain(_embed(params["embed"].to(cd), tokens), cfg.batch_axes)  # [B, 1, D]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device)
-    for lp, k_cache, v_cache in zip(_layers(params), k_all, v_all):
+    for lp, k_cache, v_cache in zip(_layers(params), _cache_layers(k_all),
+                                    _cache_layers(v_all)):
         h = rms_norm(x, lp["ln1"].to(cd), cfg.norm_eps)
-        q, k, v = _qkv(lp, h, cfg)
+        q, k, v = _qkv(lp, h, cfg, _column_parallel)
         q = attn_mod.rope(_split_heads(q, hq, dh), positions, cfg.rope_theta)
         k = attn_mod.rope(_split_heads(k, hkv, dh), positions, cfg.rope_theta)
         v = _split_heads(v, hkv, dh)
-        k_cache.index_copy_(2, slot_idx, k.transpose(1, 2).to(torch.bfloat16))
-        v_cache.index_copy_(2, slot_idx, v.transpose(1, 2).to(torch.bfloat16))
+        _write_slot(k_cache, k.transpose(1, 2), slot)
+        _write_slot(v_cache, v.transpose(1, 2), slot)
         o = attn_mod.decode_attention(q.transpose(1, 2).to(cd), k_cache.to(cd),
                                       v_cache.to(cd), live)
         x = x + _row_parallel(_merge_heads(o.transpose(1, 2)), lp["wo"], cd)
         out, _ = _ffn(lp, rms_norm(x, lp["ln2"].to(cd), cfg.norm_eps), cfg,
-                      capacity_factor=2.0)
+                      capacity_factor=2.0, proj=_column_parallel)
         x = su.maybe_constrain(x + out, cfg.batch_axes)
-    return _logits(params, x, cfg), {"k": k_all, "v": v_all, "pos": pos + 1}
+    return _logits(params, x, cfg, _column_parallel), {"k": k_all, "v": v_all,
+                                                       "pos": pos + 1}
+
+
+def _cache_layers(kv) -> list:
+    """The per-layer views [B, Hkv, S, Dh] of a cache buffer [L, B, Hkv, S,
+    Dh]; of a ``DTensor`` buffer, ``DTensor``s over this rank's layer views
+    of its shard (the layer dim must not be sharded)."""
+    if not su.is_dtensor(kv):
+        return list(kv.unbind(0))
+    from torch.distributed.tensor import DTensor, Shard
+
+    if any(p.is_shard(0) for p in kv.placements):
+        raise ValueError(f"decode: cache placed {kv.placements}; its layer dim is sharded")
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() else p for p in kv.placements)
+    return [DTensor.from_local(t, kv.device_mesh, pl, run_check=False)
+            for t in su.no_grad_local(kv).unbind(0)]
+
+
+def _write_slot(cache, new, slot: int) -> None:
+    """``cache[:, :, slot] = new[:, :, 0]`` in place (cache [B, Hkv, S, Dh],
+    new [B, Hkv, 1, Dh] cast to the cache's dtype).
+
+    Under a mesh it is a ``local_map`` site on each rank's cache slice.
+    Placement rule: the cache ``Shard(0)`` (batch), ``Shard(2)`` (sequence)
+    or ``Replicate()`` on each mesh dim; ``new`` redistributed to the
+    cache's batch shards and replicated elsewhere (its heads gathered and
+    partial sums reduced before the cast).  Only the rank whose sequence
+    slice holds ``slot`` writes (``sharding_utils.local_offset``); the
+    others write nothing.  Any other cache placement raises.
+    """
+    if not su.is_dtensor(cache):
+        cache.index_copy_(2, torch.tensor([slot], device=cache.device), new.to(cache.dtype))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, c_pl = cache.device_mesh, tuple(cache.placements)
+    for p in c_pl:
+        if not (p.is_replicate() or p.is_shard(0) or p.is_shard(2)):
+            raise ValueError(f"decode: cache placed {c_pl}; each mesh dim must shard its "
+                             f"batch (0) or sequence (2), or replicate")
+    n_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in c_pl)
+    if tuple(new.placements) != n_pl:
+        new = new.redistribute(mesh, n_pl)
+    su.requires_even(cache, 2, "decode cache write")
+    lo = su.local_offset(cache, 2)
+
+    def site(c_, n_):
+        if lo <= slot < lo + c_.shape[2]:
+            c_.index_copy_(2, torch.tensor([slot - lo], device=c_.device), n_.to(c_.dtype))
+        return c_
+
+    local_map(site, out_placements=list(c_pl), in_placements=(c_pl, n_pl),
+              device_mesh=mesh)(cache, new)
 
 
 # ---------------------------------------------------------------------------

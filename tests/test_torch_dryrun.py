@@ -18,6 +18,8 @@ import subprocess
 import sys
 import textwrap
 
+import pytest
+
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 
 _COUNTERS = textwrap.dedent("""
@@ -85,3 +87,78 @@ def test_cli_records_ok_and_error_cells(tmp_path):
     bad = json.loads((tmp_path / "16x16" / "h2o-danube-1.8b__train_4k__cost3.json")
                      .read_text())
     assert bad["status"] == "error" and "cost3" in bad["error"]
+
+
+#: the cells that need the context-parallel decode site or the sampler on a mesh
+MESH_SITE_CELLS = [(a, "decode_32k") for a in ("h2o-danube-1.8b", "qwen3-moe-235b-a22b",
+                                               "arctic-480b", "qwen2-72b",
+                                               "mistral-large-123b")] \
+    + [("h2o-danube-1.8b", "long_500k")] \
+    + [(a, "minibatch_lg") for a in ("gcn-cora", "mace", "schnet", "graphcast")]
+
+_PRODUCTION = textwrap.dedent("""
+    import json, sys
+    from repro_torch.launch import dryrun, mesh as mesh_mod, roofline
+    multi_pod, full_dir = sys.argv[2] == "1", sys.argv[3]
+    dryrun.init_fake_world(512 if multi_pod else 256)
+    mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+    recs = [dryrun.run_cell(a, s, mesh=mesh, reduced=True) for a, s in json.loads(sys.argv[1])]
+    if full_dir:  # h2o-danube decode_32k at full width, and its roofline terms
+        for v in ("cost2", "cost4"):
+            rec = dryrun.run_cell("h2o-danube-1.8b", "decode_32k", mesh=mesh, variant=v)
+            recs.append(rec)
+            with open(dryrun.result_path("h2o-danube-1.8b", "decode_32k", v, False,
+                                         root=full_dir), "w") as f:
+                json.dump(rec, f)
+        roofline.RESULTS_DIR = full_dir
+        recs.append(roofline.costs_from("h2o-danube-1.8b", "decode_32k",
+                                        {"kind": "lm_decode"}))
+    print(json.dumps(recs))
+""")
+
+
+@pytest.fixture(scope="module")
+def production_runs(tmp_path_factory):
+    """``_PRODUCTION``'s records on 16×16 (with the full-width h2o-danube
+    decode) and on 2×16×16, the two processes run at once."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    full_dir = str(tmp_path_factory.mktemp("dryrun_full"))
+    procs = {mp: subprocess.Popen([sys.executable, "-c", _PRODUCTION,
+                                   json.dumps(MESH_SITE_CELLS), str(int(mp)),
+                                   "" if mp else full_dir],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  cwd=ROOT, env=env) for mp in (False, True)}
+    out = {}
+    for mp, p in procs.items():
+        stdout, stderr = p.communicate(timeout=300)
+        assert p.returncode == 0, stderr[-3000:]
+        out[mp] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+def test_mesh_site_cells_dry_run_on_production_meshes(production_runs, multi_pod):
+    """The 10 cells that decode a sequence-sharded KV cache or sample a
+    subgraph on the mesh record ``ok`` (their SMOKE configs, on the fake
+    16×16 and 2×16×16 meshes); on 16×16 so does h2o-danube ``decode_32k`` at
+    full width (``cost2``, ``cost4``), and the roofline's ``lm_decode``
+    collective term counts the flash-decoding merge: one all-reduce max of
+    m [B_local, Hq] and one all-reduce sum of (o, l) [B_local, Hq, Dh + 1]
+    a layer, in float32."""
+    out = production_runs[multi_pod]
+    for (arch, shape), rec in zip(MESH_SITE_CELLS, out):
+        assert rec["status"] == "ok", (arch, shape, rec.get("error"))
+        assert rec["n_devices"] == (512 if multi_pod else 256)
+    if multi_pod:
+        return
+    c2, c4, step = out[len(MESH_SITE_CELLS):]
+    assert c2["status"] == c4["status"] == "ok"
+    b_local, hq, dh = 128 // 16, 32, 80
+    merge = 4 * b_local * hq * (1 + dh + 1)  # bytes of the two all-reduces a layer
+    ar2, ar4 = (c["collectives"]["total_bytes"]["all-reduce"] for c in (c2, c4))
+    n2, n4 = (c["collectives"]["count"]["all-reduce"] for c in (c2, c4))
+    assert n4 - n2 >= 2 * 2 and ar4 - ar2 >= 2 * merge
+    coll = sum(c2["collectives"]["total_bytes"].values())
+    per_layer = (sum(c4["collectives"]["total_bytes"].values()) - coll) / 2
+    assert step["coll"] == pytest.approx(coll + 22 * per_layer)  # 24 layers
+    assert step["coll"] >= 24 * merge

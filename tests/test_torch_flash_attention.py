@@ -102,6 +102,40 @@ def test_decode_attention_matches_repro(kv_len, window):
     np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("seed,kv_len,window,cuts", [
+    (0, 64, 0, (32,)),               # two halves, both live
+    (1, 40, 0, (8, 16, 48)),         # the last part holds no live slot
+    (2, 7, 0, (8, 40)),              # only the first part is live
+    (3, 64, 16, (5, 21, 37, 50)),    # a window: the first parts are masked out
+    (4, 33, 0, ()),                  # one part: the whole cache
+    (5, 50, 0, tuple(range(1, 64))),  # one slot a part
+])
+def test_merge_decode_partials_equals_decode_attention(seed, kv_len, window, cuts):
+    """``decode_attention_partials`` over a split of the cache's sequence,
+    merged by ``merge_decode_partials``, equals ``decode_attention`` within
+    rtol 1e-6 (and ``repro``'s within its decode test's tolerance); a part
+    with no live slot weighs 0 and gives no NaN."""
+    q, k, v = _t(*_qkv(seed, 3, 8, 2, 1, 64, 32))
+    bounds = (0, *cuts, 64)
+    parts = [fa_ops.decode_attention_partials(q, k[:, :, lo:hi], v[:, :, lo:hi], kv_len,
+                                              s_offset=lo, window=window)
+             for lo, hi in zip(bounds, bounds[1:])]
+    for (m, l, o), lo in zip(parts, bounds):
+        assert m.dtype == l.dtype == o.dtype == torch.float32
+        if lo >= kv_len:  # no live slot: the masked score, nothing summed
+            assert bool((m == -1e30).all()) and not l.any() and not o.any()
+    got = fa_ops.merge_decode_partials(*(torch.stack(t) for t in zip(*parts)))
+    assert torch.isfinite(got).all()
+    want = fa_ops.decode_attention(q, k, v, kv_len, window=window)[:, :, 0]
+    # rtol 1e-6, with an atol of the output's scale: an output near 0 sums
+    # terms of either sign, normalised before (decode_attention) or after
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(want.abs().max()))
+    exp = np.asarray(j_fa.decode_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                           kv_len, window=window))[:, :, 0]
+    np.testing.assert_allclose(got.numpy(), exp, rtol=1e-5, atol=1e-6)
+
+
 def test_op_preconditions_and_backends():
     q, k, v = _t(*_qkv(3, 1, 2, 1, 96, 96, 16))
     with pytest.raises(ValueError, match="multiples"):

@@ -1294,6 +1294,33 @@ def test_flash_attention_large_lm_geometry_on_card(cuda, hq, hkv):
               torch.bfloat16)
 
 
+#: launches of each large-LM prefill geometry in the repeat test
+PREFILL_REPEATS = 24
+
+
+@pytest.mark.parametrize("hq,hkv", [(64, 4), (56, 8), (64, 8), (96, 8)],
+                         ids=["qwen3_g16", "arctic_g7", "qwen2_g8", "mistral_g12"])
+def test_flash_attention_large_prefills_repeated(cuda, hq, hkv):
+    """The four cost1 prefills' attention (``chip_smoke.LARGE_PREFILLS``:
+    batch 1, D = 128, groups 16 / 7 / 8 / 12, causal, bfloat16) at 4,096 of
+    their 32,768 tokens, launched PREFILL_REPEATS times on the wgmma kernel
+    with a synchronise after each: every launch completes and gives the
+    first one's output bit for bit (the kernel is deterministic), which
+    holds against the plain attention.  A launch that faults (an illegal
+    instruction, a bad address) fails here at its own launch."""
+    q, k, v = _fa_inputs(cuda, torch.bfloat16, 1, hq, hkv, 4096, 4096, 128, seed=hq * hkv)
+    paths = dict(fa_kernel.flash_attention.path_launches)
+    first = fa_kernel.flash_attention(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    for i in range(PREFILL_REPEATS - 1):
+        got = fa_kernel.flash_attention(q, k, v, causal=True, window=0)
+        torch.cuda.synchronize()
+        assert torch.equal(got, first), f"launch {i + 2} differs from the first"
+    assert fa_kernel.flash_attention.path_launches["wgmma"] == paths["wgmma"] + PREFILL_REPEATS
+    _fa_close(first, fa_kernel.flash_attention_torch(q, k, v, causal=True, window=0), v,
+              torch.bfloat16)
+
+
 def test_bag_train_on_card_kernel_forward_plain_backward(cuda):
     """The op under autograd on the card: the forward launches the kernel,
     the table grad (plain index_add_) equals the CPU's within the sums'
