@@ -90,23 +90,18 @@ class AllocStats:
     """Bookkeeping mirroring the paper's allocator microbenchmarks.
 
     ``relayouts`` counts whole-buffer reallocations (the expensive path the
-    pow-2 slack exists to avoid); ``inplace_updates`` counts updates served
-    entirely from existing slack (the cheap path).  ``used_elems`` /
+    pow-2 slack exists to avoid).  ``used_elems`` /
     ``slack_elems`` track live edges vs dead-or-slack slots inside the
     arena's bump prefix — the occupancy signal the traversal engine uses to
     trigger block compaction (DESIGN.md §7).
     """
 
     relayouts: int = 0
-    inplace_updates: int = 0
     slack_elems: int = 0
     used_elems: int = 0
 
     def record_relayout(self) -> None:
         self.relayouts += 1
-
-    def record_inplace(self) -> None:
-        self.inplace_updates += 1
 
     @property
     def slack_fraction(self) -> float:

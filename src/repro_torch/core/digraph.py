@@ -31,6 +31,7 @@ import torch
 from . import alloc, arena, csr as csr_mod, edgebatch, updates, util, walk_image
 from ..kernels.csr_build import ops as _cb_ops
 from ..kernels.slot_update import ops as _su_ops
+from ..runtime import trace
 
 SENTINEL = int(util.SENTINEL)
 
@@ -276,22 +277,23 @@ class DiGraph:
         ``backend`` picks the row merge: ``cuda`` (the kernel), ``torch``
         (its plain version) or ``auto`` (by device).
         """
-        plan.validate()  # corrupt plans fail loudly (§13)
-        util.resolve_backend(backend, self.device)  # before any mutation
-        g = self if inplace else self.clone()
-        dm = g._apply_impl(plan, backend)
+        with trace.span("digraph.apply"):
+            plan.validate()  # corrupt plans fail loudly (§13)
+            util.resolve_backend(backend, self.device)  # before any mutation
+            g = self if inplace else self.clone()
+            dm = g._apply_impl(plan, backend)
         return g, dm
 
     # -- the fused plan/apply pipeline ------------------------------------
     def _apply_impl(self, plan: updates.UpdatePlan, backend: str) -> int:
         if plan.n_ops == 0:
             return 0
-        if plan.n_ins:
-            s, d, _ = plan.insert_arrays()
-            self.add_vertices(np.concatenate([s, d]))
-
-        # shared dirty-row export: drops out-of-range rows and inert runs
-        sel, rows, deg_old, ins_count = plan.active_rows(self.degrees, self.cap_v)
+        with trace.span("apply.rows"):
+            if plan.n_ins:
+                s, d, _ = plan.insert_arrays()
+                self.add_vertices(np.concatenate([s, d]))
+            # shared dirty-row export: drops out-of-range rows and inert runs
+            sel, rows, deg_old, ins_count = plan.active_rows(self.degrees, self.cap_v)
         if sel.shape[0] == 0:
             return 0
         old_caps = self.capacities[rows]
@@ -299,36 +301,35 @@ class DiGraph:
 
         # CP2AA grow decisions (host): rows whose insert upper bound spills
         # their class get a fresh block, written by the same apply.
-        ub = deg_old + ins_count
-        grow = ub > old_caps
-        new_caps = old_caps.copy()
-        new_starts = old_starts.copy()
-        if grow.any():
-            g_idx = np.nonzero(grow)[0]
-            need = alloc.edge_capacities(ub[grow])
-            new_caps[g_idx] = need
-            pending: list[int] = []
-            for i, c in zip(g_idx, need):
-                got = self.layout.try_alloc(int(c))
-                if got is None:
-                    pending.append(int(i))
-                else:
-                    new_starts[i] = got
-            if pending:
-                target = self.layout.grow_target(int(need.sum()))
-                self.dst, self.wgt, self.slot_rows = _grow_buffer(
-                    self.dst, self.wgt, self.slot_rows, target, self.cap_v
-                )
-                self._sealed.clear()  # grow copies into fresh buffers
-                self.layout.capacity = target
+        with trace.span("apply.alloc"):
+            ub = deg_old + ins_count
+            grow = ub > old_caps
+            new_caps = old_caps.copy()
+            new_starts = old_starts.copy()
+            if grow.any():
+                g_idx = np.nonzero(grow)[0]
+                need = alloc.edge_capacities(ub[grow])
+                new_caps[g_idx] = need
+                pending: list[int] = []
+                for i, c in zip(g_idx, need):
+                    got = self.layout.try_alloc(int(c))
+                    if got is None:
+                        pending.append(int(i))
+                    else:
+                        new_starts[i] = got
+                if pending:
+                    target = self.layout.grow_target(int(need.sum()))
+                    self.dst, self.wgt, self.slot_rows = _grow_buffer(
+                        self.dst, self.wgt, self.slot_rows, target, self.cap_v
+                    )
+                    self._sealed.clear()  # grow copies into fresh buffers
+                    self.layout.capacity = target
+                    self.stats.record_relayout()
+                    for i in pending:
+                        got = self.layout.try_alloc(int(new_caps[i]))
+                        assert got is not None
+                        new_starts[i] = got
                 self.stats.record_relayout()
-                for i in pending:
-                    got = self.layout.try_alloc(int(new_caps[i]))
-                    assert got is not None
-                    new_starts[i] = got
-            self.stats.record_relayout()
-        else:
-            self.stats.record_inplace()
 
         # The write-back is in place; on the GPU the fused kernel writes
         # each row back, off it the full-prefix gather rebuild runs unless
@@ -341,18 +342,19 @@ class DiGraph:
         # when a block moves — a sealed slot_rows stays snapshot-shared
         # through every non-moving update.
         self._detach("dst", "wgt", *(("slot_rows",) if has_moves else ()))
-        groups, layout = plan.fused_groups(
-            sel, rows, deg_old, grow,
-            old_starts, old_caps, new_starts, new_caps,
-            _su_ops.width_floor(self.device), self.cap_v,
-        )
-        slot_map = owner_patch = None
-        if not use_scatter:
-            rebuild_hi = _su_ops.quantized_prefix(self.cap_e, int(self.layout.bump))
-            slot_map, owner_patch = _su_ops.host_patch_layout(
-                layout, rows, old_starts, old_caps, new_starts, new_caps,
-                grow, rebuild_hi, self.cap_v, has_moves,
+        with trace.span("apply.groups"):
+            groups, layout = plan.fused_groups(
+                sel, rows, deg_old, grow,
+                old_starts, old_caps, new_starts, new_caps,
+                _su_ops.width_floor(self.device), self.cap_v,
             )
+            slot_map = owner_patch = None
+            if not use_scatter:
+                rebuild_hi = _su_ops.quantized_prefix(self.cap_e, int(self.layout.bump))
+                slot_map, owner_patch = _su_ops.host_patch_layout(
+                    layout, rows, old_starts, old_caps, new_starts, new_caps,
+                    grow, rebuild_hi, self.cap_v, has_moves,
+                )
         # interval-cache refresh rides the same apply: when the shared
         # walk image has warm [lo, hi) blocks, they are updated from the
         # merge counts and the next walk skips the host geometry rebuild.
@@ -373,11 +375,12 @@ class DiGraph:
 
         # free vacated blocks, install the new geometry
         if has_moves:
-            for st, cp in zip(old_starts[grow], old_caps[grow]):
-                if cp > 0 and st >= 0:
-                    self.layout.free(int(st), int(cp))
-            self.starts[rows] = new_starts
-            self.capacities[rows] = new_caps
+            with trace.span("apply.free"):
+                for st, cp in zip(old_starts[grow], old_caps[grow]):
+                    if cp > 0 and st >= 0:
+                        self.layout.free(int(st), int(cp))
+                self.starts[rows] = new_starts
+                self.capacities[rows] = new_caps
         self.m += net
         self._csr_cache = None
         self._refresh_image(extra)
@@ -606,11 +609,12 @@ class DiGraph:
         slots dominate after heavy deletions the blocks are first
         compacted (``auto_compact``).  ``visits0`` [B, V] batches B walks.
         """
-        if auto_compact:
-            self.maybe_compact()
-        return self.to_walk_image().walk(
-            steps, backend=backend, normalize=normalize, visits0=visits0
-        )
+        with trace.span("digraph.reverse_walk"):
+            if auto_compact:
+                self.maybe_compact()
+            return self.to_walk_image().walk(
+                steps, backend=backend, normalize=normalize, visits0=visits0
+            )
 
     def n_max_vertex(self) -> int:
         nz = np.nonzero(self.exists)[0]

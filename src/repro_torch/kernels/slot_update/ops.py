@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ...core import util
-from ...runtime import faultinject
+from ...runtime import faultinject, trace
 from ..slot_walk import ops as _sw_ops
 from . import kernel as _kernel
 
@@ -173,11 +173,12 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
     else:
         lo = hi = extra = None
     stage = None
-    if backend == "cuda":
-        counts_all, stage = _apply_cuda(dst, wgt, slot_rows, groups, lo, hi)
-    else:
-        counts_all = _apply_torch(dst, wgt, slot_rows, groups, lo, hi, scatter=scatter,
-                                  slot_map=slot_map, owner_patch=owner_patch)
+    with trace.span("slot_update.pack"):
+        if backend == "cuda":
+            counts_all, stage = _apply_cuda(dst, wgt, slot_rows, groups, lo, hi)
+        else:
+            counts_all = _apply_torch(dst, wgt, slot_rows, groups, lo, hi, scatter=scatter,
+                                      slot_map=slot_map, owner_patch=owner_patch)
     if walk is not None:  # queued behind the merges, before the host waits
         steps, nv, edges_hi, nwalks, normalize, engine = walk
         v0 = (visits0 if nwalks
@@ -188,7 +189,9 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
         extra = (visits if nwalks else visits[0], lo, hi)
 
     # one counts copy to the host, split back per group
-    counts_cat = util.host(torch.cat(counts_all)) if counts_all else np.zeros(0, np.int32)
+    with trace.span("slot_update.wait"):
+        counts_cat = (util.host(torch.cat(counts_all)) if counts_all
+                      else np.zeros(0, np.int32))
     if stage is not None:  # the operands' copy went before the counts'
         _STAGE["buf"] = stage
     counts_list, at = [], 0

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ...core import util
-from ...runtime import faultinject
+from ...runtime import faultinject, trace
 from . import kernel as _kernel
 
 SENTINEL = int(util.SENTINEL)
@@ -187,8 +187,14 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
     totals, with the difference assembled per part so the large bases are
     never rounded into the result.  The residual error is the intra-tile
     partial, ~ulp(sum of one tile).  Rows without a block pass lo == hi.
+
+    A step's phases are the program spans ``slot_walk.gather``,
+    ``slot_walk.scan`` (the tile bases) and ``slot_walk.diff``, with their
+    device time on the card; ``tile_cumsum`` between the first two is its
+    own kernel in a trace.
     """
     backend = util.resolve_backend(backend, gidx_p.device)
+    on_card = gidx_p.is_cuda
     cumsum = _kernel.tile_cumsum if backend == "cuda" else _kernel.tile_cumsum_torch
     t = gidx_p.shape[0]
     e_pad = t * EB
@@ -210,18 +216,21 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
 
     def step(visits: torch.Tensor) -> torch.Tensor:
         b = visits.shape[0]
-        zrow = torch.zeros((b, 1), dtype=torch.float32, device=visits.device)
-        vals = torch.cat([visits, zrow], dim=1).index_select(1, gflat)
+        with trace.span("slot_walk.gather", device=on_card):
+            zrow = torch.zeros((b, 1), dtype=torch.float32, device=visits.device)
+            vals = torch.cat([visits, zrow], dim=1).index_select(1, gflat)
         incl = cumsum(vals.reshape(b * t, EB)).reshape(b, t * EB)
-        bh, bl = _comp_scan(incl[:, EB - 1::EB])  # inclusive tile bases
-        bh = torch.cat([zrow, bh[:, :-1]], dim=1)  # -> exclusive
-        bl = torch.cat([zrow, bl[:, :-1]], dim=1)
-        ih = torch.where(z_hi, 0.0, incl.index_select(1, i_hi))
-        il = torch.where(z_lo, 0.0, incl.index_select(1, i_lo))
-        return (bh.index_select(1, q_hi) - bh.index_select(1, q_lo)) + (
-            (ih - il)
-            + (bl.index_select(1, q_hi) - bl.index_select(1, q_lo))
-        )
+        with trace.span("slot_walk.scan", device=on_card):
+            bh, bl = _comp_scan(incl[:, EB - 1::EB])  # inclusive tile bases
+            bh = torch.cat([zrow, bh[:, :-1]], dim=1)  # -> exclusive
+            bl = torch.cat([zrow, bl[:, :-1]], dim=1)
+        with trace.span("slot_walk.diff", device=on_card):
+            ih = torch.where(z_hi, 0.0, incl.index_select(1, i_hi))
+            il = torch.where(z_lo, 0.0, incl.index_select(1, i_lo))
+            return (bh.index_select(1, q_hi) - bh.index_select(1, q_lo)) + (
+                (ih - il)
+                + (bl.index_select(1, q_hi) - bl.index_select(1, q_lo))
+            )
 
     return step
 
