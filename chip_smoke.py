@@ -274,7 +274,8 @@ SNAP's soc-LiveJournal1):
           terms (launch.roofline: H100 data-sheet constants, modelled)
 
 then holds each kernel against its plain PyTorch version at the shapes its
-path gave it and times both.  The line before the last is
+path gave it and times both (tile_bases at the batched walk's shape: 16
+planes of the walk's tiles, against float64 cumsum).  The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device it exits non-zero at once.
@@ -550,6 +551,41 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tile_bases_row(sw_kernel, incl: torch.Tensor) -> dict:
+    """The tile_bases kernel on an inclusive plane ``incl`` [B, T·128]:
+    held against float64 cumsum of the tile totals, shifted to exclusive
+    (rtol 1e-9), a second call bit for bit; timed beside its plain version
+    (the compensated Hillis-Steele scan and the shift) and torch.cumsum in
+    float64 of the strided totals.  Bytes: one 32-byte sector a total read,
+    bh and bl written."""
+    eb = sw_kernel.EB
+    b, t = incl.shape[0], incl.shape[1] // eb
+    bh, bl = sw_kernel.tile_bases(incl)
+    ref = torch.cumsum(incl[:, eb - 1::eb], dim=1, dtype=torch.float64)
+    ref = torch.cat([ref.new_zeros(b, 1), ref[:, :-1]], dim=1)
+    err = (bh.double() + bl.double() - ref).abs()
+    if not bool((err <= 1e-9 * ref.abs()).all()):
+        raise AssertionError("tile_bases: the bases disagree with float64 cumsum")
+    again = sw_kernel.tile_bases(incl)
+    if not (torch.equal(again[0], bh) and torch.equal(again[1], bl)):
+        raise AssertionError("tile_bases: a second call gave other bits")
+    nz = ref != 0
+    max_abs, max_rel = float(err.max()), float((err[nz] / ref[nz]).max())
+    del bh, bl, ref, err, again, nz
+    return dict(
+        name="tile_bases", source="src/repro_torch/csrc/tile_bases.cu",
+        replaces="none (repro scans the tile totals with jax.lax.associative_scan)",
+        shape=f"[{b},{t}x{eb}] f32 -> 2x[{b},{t}] f32",
+        max_abs_err=max_abs, max_rel_err=max_rel,
+        tolerance="rtol 1e-9 against float64 cumsum, bit-exact on repeat",
+        ms=time_ms(lambda: sw_kernel.tile_bases(incl)),
+        plain_ms=time_ms(lambda: sw_kernel.tile_bases_torch(incl), reps=3),
+        library_ms=time_ms(
+            lambda: torch.cumsum(incl[:, eb - 1::eb], dim=1, dtype=torch.float64), reps=10),
+        bytes=b * t * (32 + 8), ops=b * t,
+    )
 
 
 def time_fresh_ms(make, fn, reps: int = 20) -> float:
@@ -4613,6 +4649,11 @@ def main() -> None:
         library_ms=time_ms(lambda: torch.cumsum(vals, dim=-1)),
         bytes=nbytes, ops=vals.numel(),
     ))
+    # the batched walk's tile bases: SERVE_BATCH planes of the walk's tiles
+    incl = (sw_kernel.tile_cumsum(vals).reshape(1, -1)
+            * torch.arange(1, SERVE_BATCH + 1, dtype=torch.float32, device=dev).unsqueeze(1))
+    rows.append(tile_bases_row(sw_kernel, incl))
+    del incl
 
     # the mixed batch's largest merge launch, from the arena it read: in
     # place against the plain version, bit for bit; timed in place, each

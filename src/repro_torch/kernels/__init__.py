@@ -9,10 +9,11 @@ from .edge_segment_sum.kernel import edge_segment_runs
 from .embedding_bag.kernel import embedding_bag
 from .flash_attention.kernel import flash_attention
 from .slot_update.kernel import merge_rows_fused
-from .slot_walk.kernel import slot_walk_partials, tile_cumsum
+from .slot_walk.kernel import slot_walk_partials, tile_bases, tile_cumsum
 
 KERNELS = {
     "tile_cumsum": tile_cumsum,
+    "tile_bases": tile_bases,
     "merge_rows_fused": merge_rows_fused,
     "degree_offsets": degree_offsets,
     "count_degrees": count_degrees,

@@ -1,9 +1,13 @@
-"""The slot walk's two tile kernels.
+"""The slot walk's tile kernels.
 
 * ``tile_cumsum``: the intra-tile prefix level of the interval walk step
   (``csrc/tile_cumsum.cu``).  It replaces the TPU kernel
   ``repro/kernels/slot_walk/kernel.py::tile_cumsum`` (one triangular MXU
   matmul per tile).
+* ``tile_bases``: the tile-base level of the same step, the exclusive
+  float64 prefix of the tile totals split into two float32 parts
+  (``csrc/tile_bases.cu``).  It replaces no TPU kernel: ``repro`` scans the
+  totals with ``jax.lax.associative_scan``.
 * ``slot_walk_partials``: the per-tile run reduction of the interval-less
   walk step (``csrc/slot_walk_partials.cu``).  It replaces the TPU kernel
   ``repro/kernels/slot_walk/kernel.py::slot_walk_partials`` (one one-hot
@@ -52,6 +56,80 @@ def tile_cumsum(vals: torch.Tensor) -> torch.Tensor:
 
 
 tile_cumsum.launches = 0
+
+#: tile totals one block of ``csrc/tile_bases.cu`` scans (its ``kChunk``)
+BASES_CHUNK = 4096
+
+
+def _twosum(a, b):
+    """Knuth TwoSum: s + e == a + b exactly (s = fl(a+b))."""
+    s = a + b
+    bp = s - a
+    return s, (a - (s - bp)) + (b - bp)
+
+
+def _comp_scan(x: torch.Tensor):
+    """Compensated inclusive scan along dim 1: (hi, lo), hi+lo ≈ exact.
+
+    Hillis–Steele doubling: log2(T) passes of whole-tensor ops, each
+    combining position i with position i-d by TwoSum of the high parts
+    and a plain sum of the low parts and the rounding error.
+    """
+    hi = x
+    lo = torch.zeros_like(x)
+    d = 1
+    while d < x.shape[1]:
+        s, e = _twosum(hi[:, :-d], hi[:, d:])
+        lo = torch.cat([lo[:, :d], lo[:, :-d] + lo[:, d:] + e], dim=1)
+        hi = torch.cat([hi[:, :d], s], dim=1)
+        d *= 2
+    return hi, lo
+
+
+def tile_bases_torch(incl: torch.Tensor):
+    """Plain version: ``_comp_scan`` of the tile totals, shifted to exclusive."""
+    hi, lo = _comp_scan(incl[:, EB - 1::EB])
+    zcol = torch.zeros((incl.shape[0], 1), dtype=torch.float32, device=incl.device)
+    return torch.cat([zcol, hi[:, :-1]], dim=1), torch.cat([zcol, lo[:, :-1]], dim=1)
+
+
+def tile_bases(incl: torch.Tensor):
+    """Exclusive compensated tile bases: incl [B, T·EB] f32 -> (bh, bl).
+
+    ``incl`` holds each tile's inclusive cumsum (``tile_cumsum``'s output
+    as [B, T·EB]), so lane EB-1 of a tile is its total.  ``bh`` and ``bl``
+    are [B, T] f32, and ``bh + bl`` is the sum of the row's totals before
+    each tile (column 0 is 0): float64 on the card, TwoSum pairs in the
+    plain version.  One launch a call (the entry point runs a reduce and a
+    scan kernel); results repeat bit for bit.
+    """
+    if incl.device.type == "cpu":
+        return tile_bases_torch(incl)
+    _build.require(incl, "incl", torch.float32, 2)
+    b, width = incl.shape
+    if width == 0 or width % EB:
+        raise ValueError(f"incl: width must be a positive multiple of {EB}, got {width}")
+    if incl.data_ptr() % 16:  # the kernel loads each total as a float4's last lane
+        raise ValueError("incl: data pointer not 16-byte aligned")
+    t = width // EB
+    bh = torch.empty((b, t), dtype=torch.float32, device=incl.device)
+    bl = torch.empty_like(bh)
+    if b == 0:
+        return bh, bl
+    sums = torch.empty(b * -(-t // BASES_CHUNK), dtype=torch.float64, device=incl.device)
+    lib = _build.library()
+    _build.check(
+        lib.repro_tile_bases(
+            incl.data_ptr(), bh.data_ptr(), bl.data_ptr(), sums.data_ptr(), sums.numel(),
+            b, t, _build.stream(incl),
+        ),
+        "tile_bases",
+    )
+    tile_bases.launches += 1
+    return bh, bl
+
+
+tile_bases.launches = 0
 
 
 def tile_ranks(rows: torch.Tensor, sink: int):

@@ -5,8 +5,9 @@ When the caller supplies per-vertex [lo, hi) block intervals (every
 formulation (``make_blocked_step``): the per-slot ``slot_rows`` operand
 is folded into the interval geometry and each step moves only the gather
 plane plus O(V) interval reads.  Its intra-tile level is the
-``tile_cumsum`` CUDA kernel (``backend="cuda"``) or its plain PyTorch
-version (``backend="torch"``); ``auto`` picks by the tensors' device.
+``tile_cumsum`` CUDA kernel and its tile-base level the ``tile_bases``
+one (``backend="cuda"``), or their plain PyTorch versions
+(``backend="torch"``); ``auto`` picks by the tensors' device.
 
 Interval-less callers (raw arenas, the seed baseline) take the rank-tile
 walk (``slot_walk_ranked``, ``repro``'s ``slot_walk_pallas``): per step a
@@ -135,31 +136,6 @@ def slot_walk_ranked(dst, slot_rows, steps: int, num_vertices: int, *,
     )[0]
 
 
-def _twosum(a, b):
-    """Knuth TwoSum: s + e == a + b exactly (s = fl(a+b))."""
-    s = a + b
-    bp = s - a
-    return s, (a - (s - bp)) + (b - bp)
-
-
-def _comp_scan(x: torch.Tensor):
-    """Compensated inclusive scan along dim 1: (hi, lo), hi+lo ≈ exact.
-
-    Hillis–Steele doubling: log2(T) passes of whole-tensor ops, each
-    combining position i with position i-d by TwoSum of the high parts
-    and a plain sum of the low parts and the rounding error.
-    """
-    hi = x
-    lo = torch.zeros_like(x)
-    d = 1
-    while d < x.shape[1]:
-        s, e = _twosum(hi[:, :-d], hi[:, d:])
-        lo = torch.cat([lo[:, :d], lo[:, :-d] + lo[:, d:] + e], dim=1)
-        hi = torch.cat([hi[:, :d], s], dim=1)
-        d *= 2
-    return hi, lo
-
-
 def _prep_gidx(dst, num_vertices: int, edges_hi: int) -> torch.Tensor:
     """Tile-padded gather indices [T, EB], masked from ``dst`` ALONE.
 
@@ -183,10 +159,11 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
     and dead slots gather 0.0, so a step reduces to ``P[hi] - P[lo]`` over
     the running prefix sum of the gathered values.  The prefix is
     hierarchical: an inclusive cumsum within each 128-slot tile (the
-    ``tile_cumsum`` kernel) plus a TwoSum-compensated scan over the T tile
-    totals, with the difference assembled per part so the large bases are
-    never rounded into the result.  The residual error is the intra-tile
-    partial, ~ulp(sum of one tile).  Rows without a block pass lo == hi.
+    ``tile_cumsum`` kernel) plus the exclusive compensated prefix of the T
+    tile totals as two float32 parts (the ``tile_bases`` kernel), with the
+    difference assembled per part so the large bases are never rounded
+    into the result.  The residual error is the intra-tile partial,
+    ~ulp(sum of one tile).  Rows without a block pass lo == hi.
 
     A step's phases are the program spans ``slot_walk.gather``,
     ``slot_walk.scan`` (the tile bases) and ``slot_walk.diff``, with their
@@ -196,6 +173,7 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
     backend = util.resolve_backend(backend, gidx_p.device)
     on_card = gidx_p.is_cuda
     cumsum = _kernel.tile_cumsum if backend == "cuda" else _kernel.tile_cumsum_torch
+    bases = _kernel.tile_bases if backend == "cuda" else _kernel.tile_bases_torch
     t = gidx_p.shape[0]
     e_pad = t * EB
     lo = block_lo.to(torch.int64).clamp(0, e_pad)
@@ -221,9 +199,7 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
             vals = torch.cat([visits, zrow], dim=1).index_select(1, gflat)
         incl = cumsum(vals.reshape(b * t, EB)).reshape(b, t * EB)
         with trace.span("slot_walk.scan", device=on_card):
-            bh, bl = _comp_scan(incl[:, EB - 1::EB])  # inclusive tile bases
-            bh = torch.cat([zrow, bh[:, :-1]], dim=1)  # -> exclusive
-            bl = torch.cat([zrow, bl[:, :-1]], dim=1)
+            bh, bl = bases(incl)
         with trace.span("slot_walk.diff", device=on_card):
             ih = torch.where(z_hi, 0.0, incl.index_select(1, i_hi))
             il = torch.where(z_lo, 0.0, incl.index_select(1, i_lo))

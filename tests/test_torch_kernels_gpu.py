@@ -61,6 +61,45 @@ def test_tile_cumsum_matches_plain(cuda, n_tiles):
     assert bool(((got - exp).abs() <= 1e-5 * exp.abs() + 1e-6 * scale).all())
 
 
+@pytest.mark.parametrize("b,t", [(1, 1), (1, 7), (2, 4099), (16, 8192), (1, 262145)])
+def test_tile_bases_near_exact(cuda, b, t):
+    """The exclusive tile bases against float64 cumsum (the bar the plain
+    compensated scan meets on the CPU), totals spanning 1e-3..1e9 and an
+    all-zero row where there are two or more; repeated bit for bit."""
+    rng = np.random.default_rng(b * 7919 + t)
+    tot = (rng.random((b, t)) * 10.0 ** rng.integers(-3, 10, (b, t))).astype(np.float32)
+    tot[1:2] = 0.0
+    incl = torch.zeros((b, t * sw_kernel.EB), device=cuda)
+    incl[:, sw_kernel.EB - 1::sw_kernel.EB] = torch.from_numpy(tot).to(cuda)
+    before = KERNELS["tile_bases"].launches
+    bh, bl = sw_kernel.tile_bases(incl)
+    assert KERNELS["tile_bases"].launches == before + 1
+    assert bh.shape == bl.shape == (b, t) and bh.is_contiguous() and bl.is_contiguous()
+    got = bh.double().cpu().numpy() + bl.double().cpu().numpy()
+    exact = np.cumsum(tot.astype(np.float64), axis=1)
+    exact = np.concatenate([np.zeros((b, 1)), exact[:, :-1]], axis=1)
+    np.testing.assert_allclose(got, exact, rtol=1e-9)
+    assert not bool(bh[:, 0].any()) and not bool(bl[:, 0].any())
+    assert not bool(bh[1:2].any()) and not bool(bl[1:2].any())
+    bh2, bl2 = sw_kernel.tile_bases(incl)
+    assert torch.equal(bh2, bh) and torch.equal(bl2, bl)
+    assert KERNELS["tile_bases"].launches == before + 2
+
+
+def test_tile_bases_rejects_bad_operands(cuda):
+    incl = torch.zeros((2, 4 * 128), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        sw_kernel.tile_bases(incl.double())
+    with pytest.raises(ValueError, match="dims"):
+        sw_kernel.tile_bases(incl.reshape(-1))
+    with pytest.raises(ValueError, match="contiguous"):
+        sw_kernel.tile_bases(incl.t().contiguous().t())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        sw_kernel.tile_bases(incl[:, :300].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        sw_kernel.tile_bases(torch.zeros(incl.numel() + 1, device=cuda)[1:].view(2, 512))
+
+
 @pytest.mark.parametrize("m,n", [(0, 5), (1000, 37), (200_000, 4096)])
 def test_count_degrees_bit_exact(cuda, m, n):
     rng = np.random.default_rng(m)
@@ -1045,7 +1084,9 @@ def test_durable_audit_catches_corruption_on_card(cuda, port_faults, kind):
 @pytest.mark.parametrize("b,t", [(2, 4099), (16, 8192)])
 def test_tile_cumsum_batched_walk_shape(cuda, b, t):
     """The served walk's batched [B·T, 128] tiles, and the batched blocked
-    step through the kernel against its plain twin."""
+    step through the kernels (one tile_cumsum and one tile_bases launch a
+    step, never the plain compensated scan; two walks bit for bit) against
+    its plain twin."""
     from repro_torch.kernels.slot_walk import ops as sw_ops
 
     rng = np.random.default_rng(b * t)
@@ -1056,9 +1097,21 @@ def test_tile_cumsum_batched_walk_shape(cuda, b, t):
     c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=b, device=cuda)
     img = DiGraph.from_csr(c, device=cuda).to_walk_image()
     v0 = torch.from_numpy(rng.random((b, img.nv)).astype(np.float32)).to(cuda)
-    before = KERNELS["tile_cumsum"].launches
-    vk = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True)
-    assert KERNELS["tile_cumsum"].launches == before + 4
+    before = {k: KERNELS[k].launches for k in ("tile_cumsum", "tile_bases")}
+    plain = {"n": 0}
+    inner = sw_kernel._comp_scan
+
+    def spy(x):
+        plain["n"] += 1
+        return inner(x)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sw_kernel, "_comp_scan", spy)
+        vk = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True)
+        assert KERNELS["tile_cumsum"].launches == before["tile_cumsum"] + 4
+        assert KERNELS["tile_bases"].launches == before["tile_bases"] + 4
+        assert torch.equal(sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True), vk)
+    assert plain["n"] == 0
     vp = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True, backend="torch")
     torch.testing.assert_close(vk, vp, rtol=5e-4, atol=1e-6)
 

@@ -201,10 +201,25 @@ def test_flat_seed_walk_matches_repro(churned):
 def test_compensated_scan_is_near_exact():
     rng = np.random.default_rng(9)
     x = (rng.random((2, 3000)) * 10.0 ** rng.integers(-3, 9, (2, 3000))).astype(np.float32)
-    hi, lo = sw_ops._comp_scan(torch.from_numpy(x))
+    hi, lo = sw_kernel._comp_scan(torch.from_numpy(x))
     exact = np.cumsum(x.astype(np.float64), axis=1)
     got = hi.numpy().astype(np.float64) + lo.numpy().astype(np.float64)
     np.testing.assert_allclose(got, exact, rtol=1e-9)
+
+
+@pytest.mark.parametrize("b,t", [(1, 1), (1, 7), (3, 300)])
+def test_tile_bases_plain_is_the_shifted_compensated_scan(b, t):
+    """The plain tile bases are ``_comp_scan`` of lane EB-1 of each tile,
+    shifted to exclusive with a zero column, bit for bit."""
+    rng = np.random.default_rng(b * t)
+    incl = torch.from_numpy(
+        (rng.random((b, t * sw_kernel.EB)) * 10.0 ** rng.integers(-3, 9, (b, 1))).astype(np.float32))
+    hi, lo = sw_kernel._comp_scan(incl[:, sw_kernel.EB - 1::sw_kernel.EB])
+    zero = torch.zeros((b, 1), dtype=torch.float32)
+    bh, bl = sw_kernel.tile_bases(incl)
+    assert torch.equal(bh, torch.cat([zero, hi[:, :-1]], dim=1))
+    assert torch.equal(bl, torch.cat([zero, lo[:, :-1]], dim=1))
+    assert bh.shape == bl.shape == (b, t)
 
 
 def test_blocked_path_no_prefix_cancellation():
