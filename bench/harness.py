@@ -4,8 +4,11 @@
 configuration's file, the mix's file (``traffic/<mix>.json``, which names
 its loop kind), the loop (``loops/<kind>.py``), each per-layer metric's
 reader (``metrics/<metric>.py``) and the cell's limits
-(``limits/<cell>.json``) are found by those names, so a cell, a mix or a
-metric is added by adding files.
+(``limits/<cell>.json``) are found by those names.  So a cell, a mix, a
+metric, a configuration of a generator family that ``gen.make_graph``
+knows, or a loop kind is added by adding files: the tests' tiny rehearsal
+(``tests/tiny.py``) sizes a cell by its configuration's ``generator`` and
+its loop's ``TINY``, not by its names.
 
 A loop's ``run(ctx)`` builds the system from the seed, calls
 ``ctx.open_window()`` when set-up is done, drives the window, calls

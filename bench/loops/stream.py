@@ -25,6 +25,10 @@ from ..harness import Check, Outcome
 from ..reference import walk as ref_walk
 from ..reference.graph import RefGraph
 
+#: the tests' rehearsal (bench/tests/tiny.py): traffic overrides at 256
+#: vertices, batches big enough to touch many rows; no chip run reads it
+TINY = {"batch_fraction": 0.01, "max_rounds_per_s": 600, "trace_seconds": 10}
+
 
 def pool_for(ctx, src, dst, n: int, rounds: int):
     """The run's batch pool on the host (set-up)."""

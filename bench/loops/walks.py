@@ -19,6 +19,11 @@ from ..reference import walk as ref_walk
 from ..reference.graph import RefGraph
 from .stream import checked_offset, checks_of, pool_for
 
+#: the tests' rehearsal (bench/tests/tiny.py): traffic overrides at 256
+#: vertices, batches big enough to touch many rows; no chip run reads it
+TINY = {"batch_fraction": 0.02, "max_calls_per_s": 5000, "trace_seconds": 10,
+        "check_stride": 2}
+
 
 def run(ctx) -> Outcome:
     tr = ctx.traffic

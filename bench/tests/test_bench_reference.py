@@ -14,7 +14,7 @@ import torch
 from bench import gen, system
 from bench.reference import walk as ref_walk
 from bench.reference.graph import RefGraph
-from bench.tests.tiny import SIZES
+from bench.tests import tiny
 
 CPU = torch.device("cpu")
 CONFIGS = {
@@ -26,7 +26,7 @@ CONFIGS = {
 
 
 def config(name: str) -> dict:
-    return {**CONFIGS[name], **SIZES[name]}
+    return {**CONFIGS[name], **tiny.config_sizes(CONFIGS[name])}
 
 
 def graph_and_pool(name: str, seed: int, rounds: int, k: int):
