@@ -56,6 +56,14 @@ def stage_bytes(w: int, k: int) -> int:
     return 4 * (2 * w + 3 * k)
 
 
+def scratch_bytes(width: int, a: int, k: int) -> int:
+    """Device memory a launch of the block kernel stages its rows in: 0
+    for warp rows and for stages that fit in shared memory."""
+    if width <= WARP_ROW_MAX or stage_bytes(width, k) <= SMEM_STAGE_MAX:
+        return 0
+    return a * stage_bytes(width, k)
+
+
 def gather_merge_torch(dst, wgt, row_ops, b_dstdel, b_wgt, width: int,
                        max_holes: int | None = None):
     """Plain gather + merge of one group: the rows' live prefixes into
@@ -148,10 +156,9 @@ def merge_rows_fused(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
     counts = torch.empty(a, dtype=torch.int32, device=dst.device)
     if a == 0:
         return counts
-    scratch = None
-    if width > WARP_ROW_MAX and stage_bytes(width, k) > SMEM_STAGE_MAX:
-        scratch = torch.empty(a * stage_bytes(width, k) // 4, dtype=torch.int32,
-                              device=dst.device)
+    nbytes = scratch_bytes(width, a, k)
+    scratch = (torch.empty(nbytes // 4, dtype=torch.int32, device=dst.device)
+               if nbytes else None)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     lib = _build.library()
     _build.check(

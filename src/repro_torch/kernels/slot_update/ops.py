@@ -25,6 +25,11 @@ first, a walk image copies what a sealed generation shares).  With
 merges (``WalkImage.walk_flush``).  The merge counts come back to the host
 through one copy per call, after everything else is queued: the only host
 synchronisation of the CUDA path.
+
+While the profiler runs, ``fused_apply`` counts each group's merge
+(``group_counters``, from the host operands) once the counts are back, in
+a span of its own, ``slot_update.count``, outside ``slot_update.pack`` and
+``slot_update.wait``; with the profiler off no counter is computed.
 """
 from __future__ import annotations
 
@@ -194,11 +199,35 @@ def fused_apply(dst, wgt, slot_rows, groups, *, scatter: bool,
                       else np.zeros(0, np.int32))
     if stage is not None:  # the operands' copy went before the counts'
         _STAGE["buf"] = stage
+    if trace.recording():
+        with trace.span("slot_update.count"):
+            for g in groups:
+                scratch = _kernel.scratch_bytes(*g[:3]) if backend == "cuda" else 0
+                trace.count(**group_counters(g, lo is not None, scratch))
     counts_list, at = [], 0
     for g in groups:
         counts_list.append(counts_cat[at:at + g[1]])
         at += g[1]
     return dst, wgt, slot_rows, counts_list, extra
+
+
+def group_counters(group, lohi: bool, scratch: int = 0) -> dict:
+    """Counters of one width group's merge, from its host operands: its
+    real rows (pad rows carry ``new_starts`` -1), their run entries (not
+    SENTINEL), live degrees and new capacities, the new and old
+    capacities of the rows that move (``new_starts`` != ``old_starts``),
+    whether ``[lo, hi)`` is written, and the scratch bytes its launch
+    allocates."""
+    width, _a_pad, _k, _d_k, _moves, (row_ops, bdl, _bw) = group
+    old_starts, old_caps, new_starts, new_caps, degs, _ids = np.asarray(row_ops, np.int64)
+    real = new_starts >= 0
+    moved = real & (new_starts != old_starts)
+    return {"width": int(width), "rows": int(real.sum()),
+            "entries": int((np.asarray(bdl)[0][real] != SENTINEL).sum()),
+            "live": int(degs[real].sum()), "new_cap": int(new_caps[real].sum()),
+            "moved_new_cap": int(new_caps[moved].sum()),
+            "moved_old_cap": int(old_caps[moved].sum()),
+            "lohi": bool(lohi), "scratch_bytes": int(scratch)}
 
 
 def _apply_cuda(dst, wgt, slot_rows, groups, lo, hi):

@@ -18,6 +18,13 @@ oldest dropped first:
   current stream around the span; ``spans()`` turns them into
   ``device_ms`` once they have completed (read after a synchronise).
 
+``count(**values)`` attaches one record of counters (a dict of numbers:
+one launch's rows, bytes, ...) to the innermost span open on the thread,
+in its ``counters`` list; with the profiler off it is the same one flag
+check and keeps nothing.  A caller whose counters cost host work to
+compute asks ``recording()`` first, so that work too runs only under the
+profiler.
+
 No span ever synchronises.  ``spans()`` returns the ring's records and
 ``clear()`` empties it; nothing is written anywhere.
 """
@@ -74,11 +81,12 @@ class Span:
     """One recorded span (see the module's docstring)."""
 
     __slots__ = ("name", "index", "parent", "root", "start_ns", "end_ns",
-                 "device_ms", "_events")
+                 "device_ms", "counters", "_events")
 
     def __init__(self, name: str, device: bool):
         self.name = name
         self.device_ms = None
+        self.counters = None
         self._events = (_event(), _event()) if device else None
 
     def __enter__(self):
@@ -109,6 +117,25 @@ def span(name: str, device: bool = False):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return Span(name, device)
+
+
+def recording() -> bool:
+    """True while spans and counters record (the profiler runs)."""
+    return _profiler._is_profiler_enabled
+
+
+def count(**values) -> None:
+    """Append ``values`` as one record to the ``counters`` of the innermost
+    span open on this thread; nothing with the profiler off or no span
+    open."""
+    if not _profiler._is_profiler_enabled:
+        return
+    stack = _stack()
+    if stack:
+        top = stack[-1]
+        if top.counters is None:
+            top.counters = []
+        top.counters.append(values)
 
 
 def spans() -> list:

@@ -17,11 +17,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import DiGraph, csr, edgebatch, updates
+from repro_torch.kernels.slot_update import ops as su_ops
 from repro_torch.io import synthetic
 from repro_torch.runtime import trace
 
 APPLY_CHILDREN = {"apply.rows", "apply.alloc", "apply.groups", "slot_update.pack",
-                  "slot_update.wait", "apply.free"}
+                  "slot_update.wait", "slot_update.count", "apply.free"}
 WALK_CHILDREN = {"slot_walk.gather", "slot_walk.scan", "slot_walk.diff"}
 
 
@@ -108,6 +109,12 @@ def test_profiler_on_records_the_spans_of_apply_and_walk():
         (rec,) = by[name]
         assert (rec.parent, rec.root) == (apply.index, apply.index), name
         assert _inside(rec, apply), name
+    # the merge's counters are computed after the spans the apply metrics read
+    (pack,), (wait,) = by["slot_update.pack"], by["slot_update.wait"]
+    (count,) = by["slot_update.count"]
+    assert pack.end_ns <= wait.start_ns and wait.end_ns <= count.start_ns
+    assert pack.counters is None and wait.counters is None
+    assert count.counters[-1]["width"] > 32  # vertex 0's row, the widest group last
     for name in WALK_CHILDREN:
         assert len(by[name]) == 3, name
         for rec in by[name]:
@@ -182,6 +189,73 @@ def test_an_apply_on_a_second_thread_gets_a_root_of_its_own():
     assert by["outer"] == [outer] and outer.parent == -1
 
 
+def _hand_graph(device="cpu"):
+    """Row 0: 3 edges in a 4-slot block; row 1: 40 in 64 slots; row 4: 1 in 2;
+    the other rows empty."""
+    src = np.array([0] * 3 + [1] * 40 + [4], np.int64)
+    dst = np.array([1, 2, 3, *range(10, 50), 0], np.int64)
+    return DiGraph.from_csr(csr.from_coo(src, dst, n=50, device=device), device=device)
+
+
+def _hand_plan():
+    """Row 0 grows out of its block (2 inserts, 1 delete), row 3 opens a
+    2-slot block, row 4 deletes an edge it lacks, row 1 (2 deletes, 1
+    insert) stays in its 64-slot block."""
+    ins = edgebatch.from_arrays(np.array([0, 0, 1, 3]), np.array([4, 5, 7, 1]),
+                                np.ones(4, np.float32))
+    dels = edgebatch.from_arrays(np.array([0, 1, 1, 4]), np.array([2, 10, 11, 9]))
+    return updates.plan_update(inserts=ins, deletes=dels)
+
+
+def _hand_counters(narrow_width):
+    """The hand count of ``_hand_plan``'s two merges after a walk (which
+    warms ``[lo, hi)``): rows 0, 3, 4 narrow, row 1 wide."""
+    narrow = {"width": narrow_width, "rows": 3, "entries": 3 + 1 + 1, "live": 3 + 0 + 1,
+              "new_cap": 8 + 2 + 2, "moved_new_cap": 8 + 2, "moved_old_cap": 4 + 0,
+              "lohi": True, "scratch_bytes": 0}
+    wide = {"width": 64, "rows": 1, "entries": 3, "live": 40, "new_cap": 64,
+            "moved_new_cap": 0, "moved_old_cap": 0, "lohi": True, "scratch_bytes": 0}
+    return [narrow, wide]
+
+
+def _counted(recs):
+    (count,) = [r for r in recs if r.name == "slot_update.count"]
+    return count.counters
+
+
+def test_profiler_off_counts_nothing_and_computes_no_counter(monkeypatch):
+    def forbidden(*_a, **_k):
+        raise AssertionError("a counter computed with the profiler off")
+
+    monkeypatch.setattr(su_ops, "group_counters", forbidden)
+    g = _hand_graph()
+    g.reverse_walk(2)
+    g.apply(_hand_plan())
+    trace.count(rows=1)
+    assert not trace.recording() and trace.spans() == []
+
+
+def test_counters_equal_a_hand_count_of_a_small_plan():
+    g = _hand_graph()
+    g.reverse_walk(2)
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert trace.recording()
+        g.apply(_hand_plan())
+    assert _counted(trace.spans()) == _hand_counters(8)  # width floor 8 off the card
+    assert sorted(g.edges_of(0).tolist()) == [1, 3, 4, 5]
+
+
+def test_count_attaches_to_the_innermost_open_span_only():
+    with profile(activities=[ProfilerActivity.CPU]):
+        trace.count(x=1)  # no span open: kept nowhere
+        with trace.span("outer") as outer:
+            with trace.span("inner") as inner:
+                trace.count(x=2)
+                trace.count(y=3)
+    assert inner.counters == [{"x": 2}, {"y": 3}] and outer.counters is None
+    assert [r.name for r in trace.spans()] == ["inner", "outer"]
+
+
 class _FakeEvent:
     made = 0
     clock = 0.0
@@ -245,3 +319,16 @@ def test_walk_step_spans_carry_device_time_on_the_card(cuda):
         assert all(r.device_ms is not None and r.device_ms >= 0 for r in by[name]), name
     for name in APPLY_CHILDREN | {"digraph.apply", "digraph.reverse_walk"}:
         assert all(r.device_ms is None for r in by[name]), name
+
+
+@pytest.mark.gpu
+def test_merge_counters_match_the_launches_on_the_card(cuda):
+    g = _hand_graph(cuda)
+    g.reverse_walk(2)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.apply(_hand_plan())
+        torch.cuda.synchronize()
+    assert _counted(trace.spans()) == _hand_counters(32)  # one warp a row up to 32 slots
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert sum("merge_rows_warp_kernel" in n for n in names) == 1
+    assert sum("merge_rows_block_kernel" in n for n in names) == 1
