@@ -275,7 +275,9 @@ SNAP's soc-LiveJournal1):
 
 then holds each kernel against its plain PyTorch version at the shapes its
 path gave it and times both (tile_bases at the batched walk's shape: 16
-planes of the walk's tiles, against float64 cumsum).  The line before the last is
+planes of the walk's tiles, against float64 cumsum; slot_gather at 16 rows
+of visits over the walk's index and at one row over the road image's, bit
+for bit, with index_select as the yardstick).  The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the exit code is non-zero and no result line
 is printed.  Without a CUDA device it exits non-zero at once.
@@ -588,6 +590,38 @@ def tile_bases_row(sw_kernel, incl: torch.Tensor) -> dict:
     )
 
 
+def slot_gather_row(sw_kernel, visits: torch.Tensor, gidx: torch.Tensor, note: str) -> dict:
+    """The slot_gather kernel on ``visits`` [B, n] and a walk image's index
+    ``gidx`` [T, 128]: bit for bit against its plain version (cat with the
+    zero column, index_select) and on a second call; timed beside the plain
+    version and index_select alone on visits that already have the zero
+    column.  Bytes: the plane written, the index and the visits read once."""
+    b, n = visits.shape
+    got = sw_kernel.slot_gather(visits, gidx)
+    if not torch.equal(got.view(torch.int32),
+                       sw_kernel.slot_gather_torch(visits, gidx).view(torch.int32)):
+        raise AssertionError(f"slot_gather: the {note} plane differs from the plain version")
+    if not torch.equal(sw_kernel.slot_gather(visits, gidx).view(torch.int32),
+                       got.view(torch.int32)):
+        raise AssertionError(f"slot_gather: a second {note} call gave other bits")
+    del got
+    zv = torch.cat([visits, visits.new_zeros(b, 1)], dim=1)
+    flat = gidx.reshape(-1)
+    row = dict(
+        name="slot_gather", source="src/repro_torch/csrc/slot_gather.cu",
+        replaces="none (repro gathers with jnp.concatenate and fancy indexing)",
+        shape=f"{note}: [{b},{n}] f32 at [{gidx.shape[0]},128] i32 -> [{b},{flat.numel()}] f32 "
+              f"({sw_kernel.gather_rows_per_pass(b)} rows a pass)",
+        max_abs_err=0.0, tolerance="bit-exact, and on repeat",
+        ms=time_ms(lambda: sw_kernel.slot_gather(visits, gidx), reps=10),
+        plain_ms=time_ms(lambda: sw_kernel.slot_gather_torch(visits, gidx), reps=5),
+        library_ms=time_ms(lambda: zv.index_select(1, flat), reps=5),
+        bytes=4 * (b * flat.numel() + flat.numel() + b * n), ops=b * flat.numel(),
+    )
+    del zv
+    return row
+
+
 def time_fresh_ms(make, fn, reps: int = 20) -> float:
     """Mean device time of ``fn(make())`` over ``reps`` calls after a
     warm-up, for a ``fn`` that writes its operands: each call gets fresh
@@ -806,7 +840,7 @@ def stream_phase(c, g, plans, vk, launches: dict, times: dict, dev) -> None:
             before, stats0 = dict(rep_launches), walk_image.stats_snapshot()
             t0 = sync_now()
             with counted(KERNELS, rep_launches), count_calls(su_kernel, plain_merge) as pm, \
-                    count_calls(sw_kernel, ("tile_cumsum_torch",)) as pc, \
+                    count_calls(sw_kernel, ("tile_cumsum_torch", "slot_gather_torch")) as pc, \
                     timed_calls(su_ops, "fused_apply") as fa, \
                     timed_calls(sw_ops, "slot_walk_multi_blocked") as ws:
                 r.reverse_walk(WALK_STEPS)
@@ -1080,7 +1114,7 @@ def durable_phase(c, launches: dict, times: dict, dev, card: str) -> None:
             assert_same_rep(r.rep, twin, "durable/recovered")
             walk_launches = dict.fromkeys(KERNELS, 0)
             with counted(KERNELS, walk_launches), \
-                    count_calls(sw_kernel, ("tile_cumsum_torch",)) as pc:
+                    count_calls(sw_kernel, ("tile_cumsum_torch", "slot_gather_torch")) as pc:
                 vr = r.reverse_walk(WALK_STEPS)
             vt = twin.reverse_walk(WALK_STEPS)
             if not same_bits(vr, vt):
@@ -2751,7 +2785,7 @@ def serve_phase(g, launches: dict, times: dict, dev, card: str) -> None:
         return srv, stats, served, pct, ack, wall
 
     try:
-        with count_calls(sw_kernel, ("tile_cumsum_torch",)) as plain, \
+        with count_calls(sw_kernel, ("tile_cumsum_torch", "slot_gather_torch")) as plain, \
                 counted(KERNELS, phase_launches), \
                 timed_calls(walk_image, "seal_generation") as seals:
             srv, _, served, pct, ack, wall = level("steady", **SERVE_LEVELS["steady"])
@@ -2846,8 +2880,8 @@ def serve_phase(g, launches: dict, times: dict, dev, card: str) -> None:
                 writer_copied_before_writing=copied, generation0_checksums="unchanged",
                 torn_reads=torn, torn_checked=checked)
             del rep, srv, gen0
-        if plain["tile_cumsum_torch"]:
-            raise AssertionError(f"serve: the plain tile cumsum ran {plain} times")
+        if any(plain.values()):
+            raise AssertionError(f"serve: the plain tile cumsum or gather ran {plain} times")
         for k_ in ("tile_cumsum", "merge_rows_fused"):
             if phase_launches[k_] == 0:
                 raise AssertionError(f"serve: {k_} never launched")
@@ -3998,7 +4032,13 @@ def main() -> None:
     rel_image = float(((vb[:rnv] - vi).abs() / vb[:rnv]).max())
     torch.testing.assert_close(vi / vi.max(), vb[:rnv] / vb.max(), rtol=WALK_RTOL,
                                atol=WALK_ATOL)
-    del vr, vi, rg
+    # the stream walk's gather: one row of visits at the road image's index
+    rimg = rg.to_walk_image()
+    road_gather_row = slot_gather_row(
+        sw_kernel, torch.rand((1, rimg.nv), generator=torch.Generator(dev).manual_seed(SEED),
+                              device=dev),
+        sw_ops._prep_gidx(rimg.dst, rimg.nv, rimg.edges_hi()), "the road walk")
+    del vr, vi, rg, rimg
     say("walk_bsr", steps=WALK_STEPS, ms=f"{times['walk_bsr_ms']:.1f}",
         max_rel_diff_plain=f"{rel_plain:.3e}", max_rel_diff_slotted=f"{rel_slotted:.3e}",
         max_rel_diff_image_walk=f"{rel_image:.3e}", vs_plain="rtol 1e-4",
@@ -4654,6 +4694,11 @@ def main() -> None:
             * torch.arange(1, SERVE_BATCH + 1, dtype=torch.float32, device=dev).unsqueeze(1))
     rows.append(tile_bases_row(sw_kernel, incl))
     del incl
+    # the batched walk's gather: SERVE_BATCH rows of visits at the walk's index
+    v16 = torch.rand((SERVE_BATCH, nv), generator=torch.Generator(dev).manual_seed(SEED),
+                     device=dev)
+    rows.append(slot_gather_row(sw_kernel, v16, gidx, "the batched walk"))
+    del v16
 
     # the mixed batch's largest merge launch, from the arena it read: in
     # place against the plain version, bit for bit; timed in place, each
@@ -4762,7 +4807,7 @@ def main() -> None:
         bytes=sw_rows.numel() * 16, ops=sw_rows.numel(),
     ))
     del got, ref, nz
-    rows += [bsr_row, seg_row, bag_row, fa_row]
+    rows += [road_gather_row, bsr_row, seg_row, bag_row, fa_row]
 
     kernels = []
     for r in rows:

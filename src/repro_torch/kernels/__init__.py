@@ -9,9 +9,10 @@ from .edge_segment_sum.kernel import edge_segment_runs
 from .embedding_bag.kernel import embedding_bag
 from .flash_attention.kernel import flash_attention
 from .slot_update.kernel import merge_rows_fused
-from .slot_walk.kernel import slot_walk_partials, tile_bases, tile_cumsum
+from .slot_walk.kernel import slot_gather, slot_walk_partials, tile_bases, tile_cumsum
 
 KERNELS = {
+    "slot_gather": slot_gather,
     "tile_cumsum": tile_cumsum,
     "tile_bases": tile_bases,
     "merge_rows_fused": merge_rows_fused,

@@ -1,5 +1,9 @@
 """The slot walk's tile kernels.
 
+* ``slot_gather``: the gathered plane of the interval walk step,
+  ``visits[b, gidx[s]]`` with the sink index reading 0.0
+  (``csrc/slot_gather.cu``).  It replaces no TPU kernel: ``repro``
+  gathers with ``jnp.concatenate`` and fancy indexing.
 * ``tile_cumsum``: the intra-tile prefix level of the interval walk step
   (``csrc/tile_cumsum.cu``).  It replaces the TPU kernel
   ``repro/kernels/slot_walk/kernel.py::tile_cumsum`` (one triangular MXU
@@ -21,10 +25,92 @@ from __future__ import annotations
 
 import torch
 
+from ...runtime import trace
 from .. import _build
 
 #: slots per tile
 EB = 128
+
+
+def slot_gather_torch(visits: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """Plain version: a zero column appended to ``visits``, then
+    ``index_select`` of every slot along dim 1."""
+    zcol = torch.zeros((visits.shape[0], 1), dtype=torch.float32, device=visits.device)
+    return torch.cat([visits, zcol], dim=1).index_select(1, gidx.reshape(-1))
+
+
+def gather_rows_per_pass(b: int) -> int:
+    """Rows a pass of ``slot_gather`` for B walks: the largest power of two
+    up to 16 that B fills.  Above one row a pass packs its rows vertex
+    major, so a slot's R values come in one read."""
+    r = 1
+    while r * 2 <= min(b, 16):
+        r *= 2
+    return r
+
+
+def _passes(b: int, rows_per_pass: int):
+    """The rows of each pass, as ``csrc/slot_gather.cu`` runs them: full
+    passes, then the largest power of two the remaining rows fill."""
+    left = b
+    while left:
+        r = rows_per_pass
+        while r > left:
+            r //= 2
+        yield r
+        left -= r
+
+
+def _launch_gather(visits, gidx, rows_per_pass: int) -> torch.Tensor:
+    """One ``repro_slot_gather`` call with ``rows_per_pass`` rows a pass."""
+    b, n = visits.shape
+    slots = gidx.numel()
+    out = torch.empty((b, slots), dtype=torch.float32, device=visits.device)
+    if b == 0:
+        return out
+    pack = (torch.empty(n * rows_per_pass, dtype=torch.float32, device=visits.device)
+            if rows_per_pass > 1 else out)
+    lib = _build.library()
+    _build.check(
+        lib.repro_slot_gather(
+            visits.data_ptr(), gidx.data_ptr(), out.data_ptr(), pack.data_ptr(),
+            b, n, slots, rows_per_pass, _build.stream(visits),
+        ),
+        "slot_gather",
+    )
+    return out
+
+
+def slot_gather(visits: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:
+    """The walk step's gathered plane: visits [B, n] f32, gidx [T, EB] int32
+    in [0, n] (n, the sink, reads 0.0) -> [B, T·EB] f32, bit for bit what
+    ``slot_gather_torch`` gives.  One launch a call (the entry point runs
+    the passes ``gather_rows_per_pass`` plans); while ``trace.recording()``
+    it adds one counter record to the open span: ``rows``, ``slots``,
+    ``rows_per_pass`` and ``bytes``: a pass's plane written and index read,
+    the visits read once and, above one row a pass, the pack written and
+    read back once."""
+    if visits.device.type == "cpu":
+        return slot_gather_torch(visits, gidx)
+    _build.require(visits, "visits", torch.float32, 2)
+    _build.require(gidx, "gidx", torch.int32, 2)
+    if gidx.shape[1] != EB:
+        raise ValueError(f"gidx: tiles must be {EB} wide, got {gidx.shape[1]}")
+    b, n = visits.shape
+    if n >= 2**31:
+        raise ValueError(f"visits: {n} vertices do not fit int32 indices")
+    rpp = gather_rows_per_pass(b)
+    out = _launch_gather(visits, gidx, rpp)
+    slot_gather.launches += 1
+    if trace.recording():
+        slots = gidx.numel()
+        nbytes = sum(4 * ((r + 1) * slots + r * n * (3 if r > 1 else 1))
+                     for r in _passes(b, rpp))
+        trace.count(rows=b, slots=slots, rows_per_pass=rpp, bytes=nbytes)
+    return out
+
+
+slot_gather.launches = 0
 
 
 def tile_cumsum_torch(vals: torch.Tensor) -> torch.Tensor:

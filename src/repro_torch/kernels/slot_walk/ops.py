@@ -4,10 +4,10 @@ When the caller supplies per-vertex [lo, hi) block intervals (every
 ``WalkImage`` does), the walk uses the scatter-free hierarchical prefix
 formulation (``make_blocked_step``): the per-slot ``slot_rows`` operand
 is folded into the interval geometry and each step moves only the gather
-plane plus O(V) interval reads.  Its intra-tile level is the
-``tile_cumsum`` CUDA kernel and its tile-base level the ``tile_bases``
-one (``backend="cuda"``), or their plain PyTorch versions
-(``backend="torch"``); ``auto`` picks by the tensors' device.
+plane plus O(V) interval reads.  Its gather is the ``slot_gather`` CUDA
+kernel, its intra-tile level the ``tile_cumsum`` one and its tile-base
+level the ``tile_bases`` one (``backend="cuda"``), or their plain PyTorch
+versions (``backend="torch"``); ``auto`` picks by the tensors' device.
 
 Interval-less callers (raw arenas, the seed baseline) take the rank-tile
 walk (``slot_walk_ranked``, ``repro``'s ``slot_walk_pallas``): per step a
@@ -156,14 +156,15 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
     """Build the scatter-free interval walk step (batched: [B, V] -> [B, V]).
 
     Each vertex's slots are one contiguous interval [block_lo, block_hi)
-    and dead slots gather 0.0, so a step reduces to ``P[hi] - P[lo]`` over
-    the running prefix sum of the gathered values.  The prefix is
-    hierarchical: an inclusive cumsum within each 128-slot tile (the
-    ``tile_cumsum`` kernel) plus the exclusive compensated prefix of the T
-    tile totals as two float32 parts (the ``tile_bases`` kernel), with the
-    difference assembled per part so the large bases are never rounded
-    into the result.  The residual error is the intra-tile partial,
-    ~ulp(sum of one tile).  Rows without a block pass lo == hi.
+    and dead slots gather 0.0 (the ``slot_gather`` kernel), so a step
+    reduces to ``P[hi] - P[lo]`` over the running prefix sum of the
+    gathered values.  The prefix is hierarchical: an inclusive cumsum
+    within each 128-slot tile (the ``tile_cumsum`` kernel) plus the
+    exclusive compensated prefix of the T tile totals as two float32 parts
+    (the ``tile_bases`` kernel), with the difference assembled per part so
+    the large bases are never rounded into the result.  The residual error
+    is the intra-tile partial, ~ulp(sum of one tile).  Rows without a
+    block pass lo == hi.
 
     A step's phases are the program spans ``slot_walk.gather``,
     ``slot_walk.scan`` (the tile bases) and ``slot_walk.diff``, with their
@@ -172,6 +173,7 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
     """
     backend = util.resolve_backend(backend, gidx_p.device)
     on_card = gidx_p.is_cuda
+    gather = _kernel.slot_gather if backend == "cuda" else _kernel.slot_gather_torch
     cumsum = _kernel.tile_cumsum if backend == "cuda" else _kernel.tile_cumsum_torch
     bases = _kernel.tile_bases if backend == "cuda" else _kernel.tile_bases_torch
     t = gidx_p.shape[0]
@@ -190,13 +192,11 @@ def make_blocked_step(gidx_p, block_lo, block_hi, num_vertices: int, *,
     z_hi = r_hi == 0
     i_lo = q_lo * EB + (r_lo - 1).clamp(min=0)
     i_hi = q_hi * EB + (r_hi - 1).clamp(min=0)
-    gflat = gidx_p.reshape(-1)
 
     def step(visits: torch.Tensor) -> torch.Tensor:
         b = visits.shape[0]
         with trace.span("slot_walk.gather", device=on_card):
-            zrow = torch.zeros((b, 1), dtype=torch.float32, device=visits.device)
-            vals = torch.cat([visits, zrow], dim=1).index_select(1, gflat)
+            vals = gather(visits.contiguous(), gidx_p)
         incl = cumsum(vals.reshape(b * t, EB)).reshape(b, t * EB)
         with trace.span("slot_walk.scan", device=on_card):
             bh, bl = bases(incl)

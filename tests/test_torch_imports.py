@@ -271,6 +271,8 @@ def _wrapper_calls():
     rng = np.random.default_rng(0)
     vals = torch.from_numpy(rng.random((3, 128), dtype=np.float32))
     incl = torch.cumsum(torch.from_numpy(rng.random((2, 5 * 128), dtype=np.float32)), dim=1)
+    gv = torch.from_numpy(rng.random((3, 9), dtype=np.float32))
+    gidx = torch.from_numpy(rng.integers(0, 10, (2, 128)).astype(np.int32))  # 9: the sink
     src = torch.from_numpy(rng.integers(-1, 9, 50).astype(np.int32))
     src_s = torch.sort(src).values
     d = torch.tensor([[1, 4, 9, 2**31 - 1]], dtype=torch.int32)
@@ -311,6 +313,8 @@ def _wrapper_calls():
                         lambda: sw_kernel.tile_cumsum_torch(vals)),
         "tile_bases": (lambda: sw_kernel.tile_bases(incl),
                        lambda: sw_kernel.tile_bases_torch(incl)),
+        "slot_gather": (lambda: sw_kernel.slot_gather(gv, gidx),
+                        lambda: sw_kernel.slot_gather_torch(gv, gidx)),
         "count_degrees": (lambda: cb_kernel.count_degrees(src, 8),
                           lambda: cb_kernel.count_degrees_torch(src, 8)),
         "degree_offsets": (lambda: cb_kernel.degree_offsets(src_s, 8),

@@ -100,6 +100,127 @@ def test_tile_bases_rejects_bad_operands(cuda):
         sw_kernel.tile_bases(torch.zeros(incl.numel() + 1, device=cuda)[1:].view(2, 512))
 
 
+def _gather_operands(b, t, n, seed, device):
+    """visits [b, n] (with -0.0, inf and a NaN) and a [t, 128] int32 index
+    holding 0, n-1 and the sink n, the rest uniform over [0, n]."""
+    rng = np.random.default_rng(seed)
+    visits = rng.random((b, n)).astype(np.float32)
+    visits[0, :3] = [-0.0, np.inf, np.nan]
+    gidx = rng.integers(0, n + 1, (t, sw_kernel.EB)).astype(np.int32)
+    gidx.reshape(-1)[:3] = [0, n - 1, n]
+    return torch.from_numpy(visits).to(device), torch.from_numpy(gidx).to(device)
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("t", [1, 7, 4096])
+@pytest.mark.parametrize("b", [1, 3, 16, 17])
+def test_slot_gather_matches_plain(cuda, b, t):
+    """The gathered plane bit for bit against cat + index_select (sink
+    columns +0.0, -0.0 / inf / NaN copied as they are), again on a second
+    call, one launch a call."""
+    visits, gidx = _gather_operands(b, t, 50_000, b * 7919 + t, cuda)
+    before = KERNELS["slot_gather"].launches
+    got = sw_kernel.slot_gather(visits, gidx)
+    assert KERNELS["slot_gather"].launches == before + 1
+    assert got.shape == (b, t * sw_kernel.EB) and got.is_contiguous()
+    assert torch.equal(_bits(got), _bits(sw_kernel.slot_gather_torch(visits, gidx)))
+    assert torch.equal(_bits(sw_kernel.slot_gather(visits, gidx)), _bits(got))
+    assert KERNELS["slot_gather"].launches == before + 2
+
+
+@pytest.mark.parametrize("b", [5, 16, 23])
+def test_slot_gather_every_pass_plan(cuda, b):
+    """Every rows-a-pass plan (1 to 16, with ragged last passes) gives the
+    plain plane bit for bit."""
+    visits, gidx = _gather_operands(b, 300, 20_000, b, cuda)
+    exp = _bits(sw_kernel.slot_gather_torch(visits, gidx))
+    for r in (1, 2, 4, 8, 16):
+        assert torch.equal(_bits(sw_kernel._launch_gather(visits, gidx, r)), exp), r
+
+
+def test_slot_gather_loads_before_it_stores(cuda):
+    """In every instantiation of the gather kernel each global load comes
+    before the first global store in the compiled code, so a thread has
+    all its random reads in flight at once (stores interleaved with the
+    loads made the walk16 gather 22% slower)."""
+    import os
+    import re
+    import subprocess
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                          check=True).stdout
+    seen = 0
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if "slot_gather_kernel" not in fn.split("\n", 1)[0]:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
+        mem = [o[:3] for o in ops if o.startswith(("LDG", "STG"))]
+        assert "STG" in mem and "LDG" not in mem[mem.index("STG"):], mem
+        seen += 1
+    assert seen == 5  # R = 1, 2, 4, 8, 16
+
+
+def test_slot_gather_counts_under_the_profiler(cuda):
+    """Under the profiler one counter record a launch lands in the open
+    span: the rows, the slots, the plan's rows a pass and the bytes."""
+    from repro_torch.runtime import trace
+
+    visits, gidx = _gather_operands(17, 64, 10_000, 3, cuda)
+    trace.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with trace.span("slot_walk.gather", device=True):
+            sw_kernel.slot_gather(visits, gidx)
+    torch.cuda.synchronize()
+    (rec,) = [s_ for s_ in trace.spans() if s_.name == "slot_walk.gather"]
+    (cnt,) = rec.counters
+    slots, n = 64 * 128, 10_000
+    # a pass of 16 packed rows, then one row read as it is
+    exp = 4 * (17 * slots + 2 * slots + 3 * 16 * n + n)
+    assert cnt == {"rows": 17, "slots": slots, "rows_per_pass": 16, "bytes": exp}
+    trace.clear()
+    sw_kernel.slot_gather(visits, gidx)
+    assert not trace.spans()
+
+
+def test_slot_gather_rejects_bad_operands(cuda):
+    visits, gidx = _gather_operands(2, 4, 1000, 0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        sw_kernel.slot_gather(visits.double(), gidx)
+    with pytest.raises(ValueError, match="int32"):
+        sw_kernel.slot_gather(visits, gidx.long())
+    with pytest.raises(ValueError, match="dims"):
+        sw_kernel.slot_gather(visits, gidx.reshape(-1))
+    with pytest.raises(ValueError, match="dims"):
+        sw_kernel.slot_gather(visits[0], gidx)
+    with pytest.raises(ValueError, match="128 wide"):
+        sw_kernel.slot_gather(visits, gidx.reshape(8, 64))
+    with pytest.raises(ValueError, match="contiguous"):
+        sw_kernel.slot_gather(visits.t().contiguous().t(), gidx)
+    with pytest.raises(ValueError, match="CUDA"):
+        sw_kernel.slot_gather(visits, gidx.cpu())
+
+
+def test_slot_gather_takes_views_off_the_16_byte_boundary(cuda):
+    """The kernel makes no vector access to the caller's tensors (only to
+    its own pack), so views 1-3 elements past a 16-byte boundary gather bit
+    for bit."""
+    visits, gidx = _gather_operands(3, 5, 1000, 1, cuda)
+    exp = _bits(sw_kernel.slot_gather_torch(visits, gidx))
+    for k in (1, 2, 3):
+        v = torch.empty(visits.numel() + k, device=cuda)[k:].view(visits.shape)
+        g = torch.empty(gidx.numel() + k, dtype=torch.int32, device=cuda)[k:].view(gidx.shape)
+        v.copy_(visits)
+        g.copy_(gidx)
+        assert v.data_ptr() % 16 and g.data_ptr() % 16
+        assert torch.equal(_bits(sw_kernel.slot_gather(v, g)), exp)
+
+
 @pytest.mark.parametrize("m,n", [(0, 5), (1000, 37), (200_000, 4096)])
 def test_count_degrees_bit_exact(cuda, m, n):
     rng = np.random.default_rng(m)
@@ -1084,9 +1205,10 @@ def test_durable_audit_catches_corruption_on_card(cuda, port_faults, kind):
 @pytest.mark.parametrize("b,t", [(2, 4099), (16, 8192)])
 def test_tile_cumsum_batched_walk_shape(cuda, b, t):
     """The served walk's batched [B·T, 128] tiles, and the batched blocked
-    step through the kernels (one tile_cumsum and one tile_bases launch a
-    step, never the plain compensated scan; two walks bit for bit) against
-    its plain twin."""
+    step through the kernels (one slot_gather, one tile_cumsum and one
+    tile_bases launch a step, never the plain gather or compensated scan;
+    two walks bit for bit, and bit for bit against the same walk with the
+    parent's cat + index_select gather) against its plain twin."""
     from repro_torch.kernels.slot_walk import ops as sw_ops
 
     rng = np.random.default_rng(b * t)
@@ -1097,21 +1219,36 @@ def test_tile_cumsum_batched_walk_shape(cuda, b, t):
     c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=b, device=cuda)
     img = DiGraph.from_csr(c, device=cuda).to_walk_image()
     v0 = torch.from_numpy(rng.random((b, img.nv)).astype(np.float32)).to(cuda)
-    before = {k: KERNELS[k].launches for k in ("tile_cumsum", "tile_bases")}
-    plain = {"n": 0}
-    inner = sw_kernel._comp_scan
+    names = ("slot_gather", "tile_cumsum", "tile_bases")
+    before = {k: KERNELS[k].launches for k in names}
+    plain = {"scan": 0, "gather": 0}
+    inner_scan, inner_gather = sw_kernel._comp_scan, sw_kernel.slot_gather_torch
 
-    def spy(x):
-        plain["n"] += 1
-        return inner(x)
+    def spy_scan(x):
+        plain["scan"] += 1
+        return inner_scan(x)
+
+    def spy_gather(v, g):
+        plain["gather"] += 1
+        return inner_gather(v, g)
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(sw_kernel, "_comp_scan", spy)
+        mp.setattr(sw_kernel, "_comp_scan", spy_scan)
+        mp.setattr(sw_kernel, "slot_gather_torch", spy_gather)
         vk = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True)
-        assert KERNELS["tile_cumsum"].launches == before["tile_cumsum"] + 4
-        assert KERNELS["tile_bases"].launches == before["tile_bases"] + 4
+        for k in names:
+            assert KERNELS[k].launches == before[k] + 4, k
         assert torch.equal(sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True), vk)
-    assert plain["n"] == 0
+    assert plain == {"scan": 0, "gather": 0}
+
+    def parent_gather(v, g):  # the step's gather before the kernel
+        zrow = torch.zeros((v.shape[0], 1), dtype=torch.float32, device=v.device)
+        return torch.cat([v, zrow], dim=1).index_select(1, g.reshape(-1))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sw_kernel, "slot_gather", parent_gather)
+        vparent = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True)
+    assert torch.equal(vk, vparent)
     vp = sw_ops.slot_walk_image(img, 4, visits0=v0, normalize=True, backend="torch")
     torch.testing.assert_close(vk, vp, rtol=5e-4, atol=1e-6)
 

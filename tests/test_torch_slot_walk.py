@@ -222,6 +222,73 @@ def test_tile_bases_plain_is_the_shifted_compensated_scan(b, t):
     assert bh.shape == bl.shape == (b, t)
 
 
+def _gather_case(b, t, n, seed):
+    """visits [b, n] (with -0.0, inf and a NaN) and a [t, EB] int32 index
+    that holds 0, n-1 and the sink n, the rest uniform over [0, n]."""
+    rng = np.random.default_rng(seed)
+    visits = rng.random((b, n)).astype(np.float32)
+    visits[0, :3] = [-0.0, np.inf, np.nan][:min(3, n)]
+    gidx = rng.integers(0, n + 1, (t, sw_kernel.EB)).astype(np.int32)
+    gidx.reshape(-1)[:3] = [0, n - 1, n]
+    return torch.from_numpy(visits), torch.from_numpy(gidx)
+
+
+@pytest.mark.parametrize("b,t,n", [(1, 1, 5), (1, 7, 300), (3, 7, 300), (16, 4, 1000)])
+def test_slot_gather_plain_is_cat_index_select(b, t, n):
+    """The plain gather (and the wrapper on CPU tensors) is the zero column
+    appended, then index_select along dim 1, bit for bit, and ``repro``'s
+    ``jnp.concatenate([visits, zrow], axis=1)[:, gidx]`` too: sink columns
+    read +0.0, every other slot its vertex's bits."""
+    visits, gidx = _gather_case(b, t, n, b * t)
+    zcol = torch.zeros((b, 1), dtype=torch.float32)
+    exp = torch.cat([visits, zcol], dim=1).index_select(1, gidx.reshape(-1))
+    for got in (sw_kernel.slot_gather_torch(visits, gidx), sw_kernel.slot_gather(visits, gidx)):
+        assert got.shape == (b, t * sw_kernel.EB)
+        assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    sink = gidx.reshape(-1) == n
+    assert sink.any() and not got[:, sink].view(torch.int32).any()
+    j = np.asarray(jnp.concatenate([jnp.asarray(visits.numpy()), jnp.zeros((b, 1), jnp.float32)],
+                                   axis=1)[:, gidx.numpy().reshape(-1)])
+    assert np.array_equal(j.view(np.int32), got.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 7, 16, 17, 40])
+def test_gather_pass_plan_covers_the_rows(b):
+    """The pass plan takes every row once: full passes of the largest power
+    of two up to 16 that B fills, then powers of two the rest fills."""
+    rpp = sw_kernel.gather_rows_per_pass(b)
+    assert rpp <= min(b, 16) < 2 * rpp or rpp == 16
+    passes = list(sw_kernel._passes(b, rpp))
+    assert sum(passes) == b and max(passes) == rpp
+    assert all(r & (r - 1) == 0 and r <= rpp for r in passes)
+    assert passes == sorted(passes, reverse=True)
+
+
+def test_blocked_step_torch_backend_is_the_written_out_step(churned):
+    """``make_blocked_step(backend="torch")`` is the gather (zero column,
+    index_select), the tile cumsum, the plain tile bases and the interval
+    differences, bit for bit over four batched steps."""
+    g, nv, lo, hi, _ = churned
+    gidx = sw_ops._prep_gidx(g.dst, nv, g.dst.shape[0])
+    lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
+    step = sw_ops.make_blocked_step(gidx, lo_t, hi_t, nv, backend="torch")
+    eb, t = sw_kernel.EB, gidx.shape[0]
+    q_lo, q_hi = (torch.clamp(x.long() // eb, max=t - 1) for x in (lo_t, hi_t))
+    r_lo, r_hi = lo_t.long() - q_lo * eb, hi_t.long() - q_hi * eb
+    i_lo, i_hi = (q * eb + (r - 1).clamp(min=0) for q, r in ((q_lo, r_lo), (q_hi, r_hi)))
+    v = w = torch.from_numpy(np.random.default_rng(4).random((3, nv)).astype(np.float32))
+    for _ in range(4):
+        vals = torch.cat([w, torch.zeros((3, 1))], dim=1).index_select(1, gidx.reshape(-1))
+        incl = torch.cumsum(vals.reshape(-1, eb), dim=-1).reshape(3, -1)
+        bh, bl = sw_kernel.tile_bases_torch(incl)
+        ih = torch.where(r_hi == 0, 0.0, incl.index_select(1, i_hi))
+        il = torch.where(r_lo == 0, 0.0, incl.index_select(1, i_lo))
+        w = (bh.index_select(1, q_hi) - bh.index_select(1, q_lo)) + (
+            (ih - il) + (bl.index_select(1, q_hi) - bl.index_select(1, q_lo)))
+        v = step(v)
+        assert torch.equal(v, w)
+
+
 def test_blocked_path_no_prefix_cancellation():
     """Large prefix totals must not leak float error into small row sums.
 
