@@ -27,8 +27,10 @@ SNAP's soc-LiveJournal1):
           against a twin graph run on the plain PyTorch merge; a snapshot
           taken first must not change; each batch timed after a warm-up
           apply of the same plan on a copy (timed too, as the batch's
-          first call), and split into fused_apply (CUDA events) and the
-          rest of apply (host planning)
+          first call), and split into fused_apply's launches (CUDA
+          events: the operands' copy and the merges) and the rest of
+          apply (host planning, the wait for the merge counts, their
+          install)
   walk    the 42-step reverse walk (timed; unnormalised it overflows f32),
           and the normalised walk held against the plain tile cumsum
   walk_slotted
@@ -44,7 +46,8 @@ SNAP's soc-LiveJournal1):
           42-step walk through walk_flush, which patches the image
           (merge_rows_fused) and walks it (tile_cumsum) with one host wait;
           the walk after the mixed batch timed and split by CUDA events
-          into the patch and the steps.  Each is held against the DiGraph
+          into the patch (fused_apply's launches) and the steps
+          (slot_walk_multi_blocked, queued after them).  Each is held against the DiGraph
           of the update phase (to_csr bit for bit, the normalised walk),
           its patched image against a fresh build (live rows bit for bit)
           and against a twin patched with the plain versions (bit for bit),
@@ -861,9 +864,9 @@ def stream_phase(c, g, plans, vk, launches: dict, times: dict, dev) -> None:
                 rules.append(f"{bname}: {rule}")
             if bname == "mixed":
                 times[f"{rep}_walk_ms"] = walk_ms
-                fused = sum(a_.elapsed_time(b_) for a_, b_, _ in fa)
+                patch_ev = sum(a_.elapsed_time(b_) for a_, b_, _ in fa)
                 steps_ev = sum(a_.elapsed_time(b_) for a_, b_, _ in ws)
-                wsplit = {"walk_patch_event_ms": fused - steps_ev,
+                wsplit = {"walk_patch_event_ms": patch_ev,
                          "walk_steps_event_ms": steps_ev,
                          "merge_launches": rep_launches["merge_rows_fused"]
                          - before["merge_rows_fused"]}
@@ -3833,7 +3836,7 @@ def main() -> None:
     def keep_merge(args, kwargs):
         """The arena and [lo, hi) as the apply found them, and its largest
         width group (by rows): the other groups touch other blocks."""
-        dst_, wgt_, rows_, groups_, lo_, hi_ = args
+        dst_, wgt_, rows_, groups_, lo_, hi_, _backend = args
         big = max(groups_, key=lambda g_: g_[1])
         clone = lambda t_: None if t_ is None else t_.clone()  # noqa: E731
         return (dst_.clone(), wgt_.clone(), rows_.clone(), big, clone(lo_), clone(hi_)), {}
@@ -3851,7 +3854,7 @@ def main() -> None:
         first_fused_ms = sum(a_.elapsed_time(b_) for a_, b_, _ in fa0)
         del warm
         if name == "mixed":  # its largest merge launch (by rows), as dispatched
-            with largest_call(su_ops, "_apply_cuda", lambda args: 0, keep_merge) as seen:
+            with largest_call(su_ops, "_merge_in_place", lambda args: 0, keep_merge) as seen:
                 g.clone().apply(plan)
             merge_case = seen["args"]
         t0 = sync_now()

@@ -78,6 +78,15 @@ def edge_capacities(degrees: np.ndarray) -> np.ndarray:
     return (out // EDGE_SIZE).astype(np.int64)
 
 
+def quantized_prefix(cap_e: int, bump: int) -> int:
+    """Bump prefix bound on the cap_e/8 lattice: the walked prefix of an
+    arena or image (``edges_hi``) and the span the host-mapped rebuild
+    write-back covers.  Coarse enough that streaming bump growth rarely
+    changes it, tight enough to skip the SENTINEL tail."""
+    q = max(cap_e // 8, 128)
+    return min(-(-max(int(bump), 1) // q) * q, cap_e)
+
+
 def reserve_size(n: int, elem_bytes: int = 4) -> int:
     """Paper Alg 1 reserve(): round a vertex-array length up to a page."""
     n = max(int(n), 1)

@@ -219,12 +219,12 @@ class DiGraph:
         self._csr_cache = None
         self._image = None
 
-    def _refresh_image(self, blocks=None) -> None:
+    def _refresh_image(self, lo, hi) -> None:
         """Keep the cached shared walk image current across an update.
 
         The arena IS the image (``shared=True``), so after an update only
-        the buffer references, bump and live count change.  ``blocks`` is
-        the refreshed [lo, hi) pair from ``fused_apply`` (None drops the
+        the buffer references, bump and live count change.  ``lo``/``hi``
+        are the [lo, hi) bounds ``fused_apply`` refreshed (None drops the
         interval cache instead).
         """
         img = self._image
@@ -236,7 +236,7 @@ class DiGraph:
         img.dst, img.wgt, img.rows = self.dst, self.wgt, self.slot_rows
         img.bump = int(self.layout.bump)
         img.live = int(self.m)
-        img._blocks = tuple(blocks) if blocks is not None else None
+        img._blocks = (lo, hi) if lo is not None else None
 
     # ------------------------------------------------------------------
     # the paper's core ops
@@ -331,47 +331,26 @@ class DiGraph:
                         new_starts[i] = got
                 self.stats.record_relayout()
 
-        # The write-back is in place; on the GPU the fused kernel writes
-        # each row back, off it the full-prefix gather rebuild runs unless
-        # the arena is huge and the batch tiny (``choose_scatter``).  The
-        # CUDA merge works on int32 ids directly, so no vertex-id cap applies.
-        touched = int(new_caps.sum() + old_caps[grow].sum())
-        use_scatter = _su_ops.choose_scatter(self.cap_e, touched, self.device)
         has_moves = bool(grow.any())
         # per-buffer COW: dst/wgt are always written; the owner map only
         # when a block moves — a sealed slot_rows stays snapshot-shared
         # through every non-moving update.
         self._detach("dst", "wgt", *(("slot_rows",) if has_moves else ()))
         with trace.span("apply.groups"):
-            groups, layout = plan.fused_groups(
-                sel, rows, deg_old, grow,
-                old_starts, old_caps, new_starts, new_caps,
-                _su_ops.width_floor(self.device), self.cap_v,
+            groups, layout, rebuild = _su_ops.patch_operands(
+                plan, sel, rows, deg_old, grow, old_starts, old_caps, new_starts, new_caps,
+                cap_e=self.cap_e, bump=int(self.layout.bump), cap_v=self.cap_v,
+                device=self.device,
             )
-            slot_map = owner_patch = None
-            if not use_scatter:
-                rebuild_hi = _su_ops.quantized_prefix(self.cap_e, int(self.layout.bump))
-                slot_map, owner_patch = _su_ops.host_patch_layout(
-                    layout, rows, old_starts, old_caps, new_starts, new_caps,
-                    grow, rebuild_hi, self.cap_v, has_moves,
-                )
         # interval-cache refresh rides the same apply: when the shared
         # walk image has warm [lo, hi) blocks, they are updated from the
         # merge counts and the next walk skips the host geometry rebuild.
         img = self._image
         blk = img._blocks if img is not None and img.starts is self.starts else None
-        self.dst, self.wgt, self.slot_rows, counts_list, extra = _su_ops.fused_apply(
-            self.dst, self.wgt, self.slot_rows, groups,
-            scatter=use_scatter, backend=backend,
-            slot_map=slot_map, owner_patch=owner_patch,
-            lo=blk[0] if blk is not None else None,
-            hi=blk[1] if blk is not None else None,
-        )
-        net = 0
-        for (_wv, gsel, _a), counts in zip(layout, counts_list):
-            counts = np.asarray(counts, dtype=np.int64)[: gsel.shape[0]]
-            self.degrees[rows[gsel]] = counts
-            net += int(counts.sum() - deg_old[gsel].sum())
+        lo, hi = blk if blk is not None else (None, None)
+        applied = _su_ops.fused_apply(self.dst, self.wgt, self.slot_rows, groups,
+                                      backend=backend, lo=lo, hi=hi, rebuild=rebuild)
+        net = _su_ops.install_counts(self.degrees, rows, deg_old, layout, applied.counts())
 
         # free vacated blocks, install the new geometry
         if has_moves:
@@ -383,7 +362,7 @@ class DiGraph:
                 self.capacities[rows] = new_caps
         self.m += net
         self._csr_cache = None
-        self._refresh_image(extra)
+        self._refresh_image(applied.lo, applied.hi)
         self._refresh_occupancy()
         return net
 

@@ -283,13 +283,7 @@ class ShardedGraph:
         """Device [lo, hi) intervals of shard ``s``'s owned rows (all
         ``rows_max`` of them, pad rows included: they have no block)."""
         a, b = s * self.rows_max, (s + 1) * self.rows_max
-        starts = np.asarray(img.starts[a:b], np.int64)
-        degs = np.asarray(img.degs[a:b], np.int64)
-        has = starts >= 0
-        lo = np.where(has, starts, 0).astype(np.int32)
-        hi = np.where(has, starts + degs, 0).astype(np.int32)
-        dev = img.dst.device
-        return torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+        return walk_image.block_bounds(img.starts[a:b], img.degs[a:b], img.dst.device)
 
     # ------------------------------------------------------------------
     # updates: host routing + per-shard fused patches

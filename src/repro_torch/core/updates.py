@@ -251,9 +251,8 @@ class UpdatePlan:
 
         The single definition of the fused engine's group contract —
         ``(width, a_pad, k, d_k, moves, (row_ops [6, A], b_dstdel
-        [2, A, K], b_wgt [A, K]))`` — shared by ``DiGraph._apply_impl``
-        and ``WalkImage._plan_patch`` so the operand packing and the
-        jit-key fields can never drift between the two patch engines.
+        [2, A, K], b_wgt [A, K]))`` — built for the DiGraph arena and the
+        walk image alike through ``slot_update.ops.patch_operands``.
         ``row_pad`` fills pad rows' ids (the consumer's drop bound);
         ``d_k`` is the group's pow-2 delete-run ceiling (the merge's
         hole-compaction window).  Returns ``(groups, layout)`` with

@@ -40,6 +40,8 @@ import numpy as np
 import torch
 
 from . import alloc, util
+from ..kernels.slot_update import ops as _su_ops
+from ..kernels.slot_walk import ops as _sw_ops
 
 SENTINEL = util.SENTINEL
 
@@ -67,6 +69,17 @@ STATS = {"builds": 0, "patches": 0, "rebuilds": 0, "dispatches": 0, "seals": 0}
 
 def stats_snapshot() -> dict:
     return dict(STATS)
+
+
+def block_bounds(starts, degs, device):
+    """Device int32 ``[lo, hi)`` slot intervals of rows with block
+    ``starts`` and degrees ``degs``: ``[start, start + deg)``, and
+    ``[0, 0)`` for a row without a block (start -1) — the bounds
+    ``merge_rows_fused`` writes for the rows it merges."""
+    has_block = starts >= 0
+    lo = np.where(has_block, starts, 0).astype(np.int32)
+    hi = np.where(has_block, starts + degs, 0).astype(np.int32)
+    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
 
 
 def seal_generation(rep, generation: int = 0) -> "WalkImage":
@@ -425,8 +438,6 @@ class WalkImage:
         bump slack left) — every failure check precedes the one mutation
         (the bump pointer), so a failed planning pass is side-effect free.
         """
-        from ..kernels.slot_update import ops as _su_ops
-
         if plan.n_ops == 0:
             return ()
         if plan.max_insert_vertex() >= self.nv:
@@ -448,44 +459,12 @@ class WalkImage:
             new_caps[g_idx] = need
             new_starts[g_idx] = self.bump + (np.cumsum(need) - need)
             self.bump += int(need.sum())
-
-        dev = self.dst.device
-        has_moves = bool(grow.any())
-        touched = int(new_caps.sum() + old_caps[grow].sum())
-        scatter = _su_ops.choose_scatter(self.cap_e, touched, dev)
-        groups, layout = plan.fused_groups(
-            sel, rows, deg_old, grow,
-            old_starts, old_caps, new_starts, new_caps,
-            _su_ops.width_floor(dev), self.nv,
+        groups, layout, rebuild = _su_ops.patch_operands(
+            plan, sel, rows, deg_old, grow, old_starts, old_caps, new_starts, new_caps,
+            cap_e=self.cap_e, bump=self.bump, cap_v=self.nv, device=self.device,
         )
-        slot_map = owner_patch = None
-        if not scatter:
-            rebuild_hi = self.edges_hi()  # post-growth bump, same lattice
-            slot_map, owner_patch = _su_ops.host_patch_layout(
-                layout, rows, old_starts, old_caps, new_starts, new_caps,
-                grow, rebuild_hi, self.nv, has_moves,
-            )
-        return dict(
-            rows=rows, deg_old=deg_old, grow=grow,
-            new_caps=new_caps, new_starts=new_starts,
-            groups=groups, layout=layout,
-            scatter=scatter, slot_map=slot_map, owner_patch=owner_patch,
-        )
-
-    def _commit_patch(self, prep, counts_list) -> None:
-        """Install the post-apply geometry (degrees, moved blocks)."""
-        rows, deg_old = prep["rows"], prep["deg_old"]
-        net = 0
-        for (_wv, gsel, _a), counts in zip(prep["layout"], counts_list):
-            counts = np.asarray(counts, dtype=np.int64)[: gsel.shape[0]]
-            self.degs[rows[gsel]] = counts
-            net += int(counts.sum() - deg_old[gsel].sum())
-        if prep["grow"].any():
-            self.starts[rows] = prep["new_starts"]
-            self.caps[rows] = prep["new_caps"]
-        self.live += net
-        self._blocks = None
-        STATS["patches"] += 1
+        return dict(rows=rows, deg_old=deg_old, grow=grow, new_caps=new_caps,
+                    new_starts=new_starts, groups=groups, layout=layout, rebuild=rebuild)
 
     def _detach_generation(self) -> None:
         """Copy the payload a sealed generation still shares, before the
@@ -494,23 +473,33 @@ class WalkImage:
             self.dst, self.wgt, self.rows = util.fused_copy(self.dst, self.wgt, self.rows)
             self._cow = False
 
+    def _launch(self, prep, backend: str, lo=None, hi=None):
+        """Launch one planned patch: one ``fused_apply``, all groups, in
+        place."""
+        self._detach_generation()
+        applied = _su_ops.fused_apply(self.dst, self.wgt, self.rows, prep["groups"],
+                                      backend=backend, lo=lo, hi=hi, rebuild=prep["rebuild"])
+        STATS["dispatches"] += 1
+        return applied
+
+    def _commit_patch(self, prep, counts_list) -> None:
+        """Install the post-apply geometry (degrees, moved blocks)."""
+        rows = prep["rows"]
+        self.live += _su_ops.install_counts(self.degs, rows, prep["deg_old"], prep["layout"],
+                                            counts_list)
+        if prep["grow"].any():
+            self.starts[rows] = prep["new_starts"]
+            self.caps[rows] = prep["new_caps"]
+        self._blocks = None
+        STATS["patches"] += 1
+
     def _patch_one(self, plan, backend: str) -> bool:
         """Apply one plan to the image: one ``fused_apply``, all groups."""
-        from ..kernels.slot_update import ops as _su_ops
-
         prep = self._plan_patch(plan)
         if prep is None:
             return False
-        if prep == ():
-            return True
-        self._detach_generation()
-        self.dst, self.wgt, self.rows, counts, _ = _su_ops.fused_apply(
-            self.dst, self.wgt, self.rows, prep["groups"],
-            scatter=prep["scatter"], backend=backend,
-            slot_map=prep["slot_map"], owner_patch=prep["owner_patch"],
-        )
-        STATS["dispatches"] += 1
-        self._commit_patch(prep, counts)
+        if prep != ():
+            self._commit_patch(prep, self._launch(prep, backend).counts())
         return True
 
     # ------------------------------------------------------------------
@@ -518,18 +507,13 @@ class WalkImage:
     # ------------------------------------------------------------------
     def edges_hi(self) -> int:
         """Bump prefix bound, quantized to cap_e/8 (<= 8 sizes per capacity)."""
-        q = max(self.cap_e // 8, 128)
-        return min(-(-max(int(self.bump), 1) // q) * q, self.cap_e)
+        return alloc.quantized_prefix(self.cap_e, self.bump)
 
     def device_blocks(self):
         """Device [lo, hi) interval tensors, memoized until the next update."""
         if self._blocks is None:
-            starts = self.starts[: self.nv]
-            has_block = starts >= 0
-            lo = np.where(has_block, starts, 0).astype(np.int32)
-            hi = np.where(has_block, starts + self.degs[: self.nv], 0).astype(np.int32)
-            dev = self.dst.device
-            self._blocks = (torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev))
+            self._blocks = block_bounds(self.starts[: self.nv], self.degs[: self.nv],
+                                        self.dst.device)
         return self._blocks
 
     def walk(self, steps: int, *, backend: str = "auto",
@@ -540,8 +524,6 @@ class WalkImage:
         vectors — all B walks then share each step.  Assumes the image is
         flushed (owners call ``walk_flush`` or ``to_walk_image()`` first).
         """
-        from ..kernels.slot_walk import ops as _sw_ops
-
         STATS["dispatches"] += 1
         return _sw_ops.slot_walk_image(
             self, steps, backend=backend, normalize=normalize, visits0=visits0,
@@ -552,32 +534,29 @@ class WalkImage:
         """Flush queued plans AND walk, with one host wait (§12).
 
         The steady-state stream round (one queued plan, then a walk) is
-        one ``fused_apply`` with the walk as its epilogue: the plan's merge
-        launches refresh the [lo, hi) geometry on the device from their
-        counts, the k walk steps are queued behind them on the patched
-        buffers, and only then does the host wait, for the counts.  Deeper
-        queues patch all but the last plan first (one apply each).
-        Returns None when the image can only be rebuilt — the owner falls
-        back to ``to_walk_image().walk(...)`` (rebuild accounting happens
-        there, in ``flush``; a failed planning pass here is side-effect
-        free).
+        one ``fused_apply`` with the walk queued behind it: the plan's
+        merge launches refresh the [lo, hi) geometry on the device from
+        their counts, the k walk steps are queued behind them on the
+        patched buffers and refreshed bounds, and only then does the host
+        wait, for the counts.  The walk fires no ``slot_walk`` fault
+        point, as in ``repro``.  Deeper queues patch all but the last plan
+        first (one apply each).  Returns None when the image can only be
+        rebuilt — the owner falls back to ``to_walk_image().walk(...)``
+        (rebuild accounting happens there, in ``flush``; a failed planning
+        pass here is side-effect free).
         """
-        from ..kernels.slot_update import ops as _su_ops
-
         dev = self.dst.device
         backend = util.resolve_backend(backend, dev)
         if self.shared or self._stale:
             return None if self._stale else self.walk(
                 steps, backend=backend, normalize=normalize, visits0=visits0,
             )
-        nwalks = 0
         if visits0 is not None:
             if visits0.ndim != 2 or visits0.shape[1] != self.nv:
                 raise ValueError(
                     "visits0 must be [num_walks, num_vertices], got "
                     f"{tuple(visits0.shape)}"
                 )
-            nwalks = int(visits0.shape[0])
             visits0 = torch.as_tensor(visits0, dtype=torch.float32, device=dev)
         while len(self._pending) > 1:
             if not self._patch_one(self._pending[0], backend):
@@ -595,22 +574,17 @@ class WalkImage:
             return self.walk(
                 steps, backend=backend, normalize=normalize, visits0=visits0,
             )
-        lo, hi = self.device_blocks()
-        self._detach_generation()
-        self.dst, self.wgt, self.rows, counts, walk_out = _su_ops.fused_apply(
-            self.dst, self.wgt, self.rows, prep["groups"],
-            scatter=prep["scatter"], backend=backend,
-            slot_map=prep["slot_map"], owner_patch=prep["owner_patch"],
-            lo=lo, hi=hi, visits0=visits0,
-            walk=(steps, self.nv, self.edges_hi(), nwalks, bool(normalize), backend),
-        )
-        STATS["dispatches"] += 1
+        applied = self._launch(prep, backend, *self.device_blocks())
+        v0 = (visits0 if visits0 is not None
+              else torch.ones((1, self.nv), dtype=torch.float32, device=dev))
+        visits = _sw_ops.slot_walk_multi_blocked(
+            self.dst, applied.lo, applied.hi, v0, steps, self.nv,
+            edges_hi=self.edges_hi(), normalize=bool(normalize), backend=backend)
         self._pending.pop(0)
-        self._commit_patch(prep, counts)
-        visits, lo2, hi2 = walk_out
-        self._blocks = (lo2, hi2)  # refreshed on the device, reusable
+        self._commit_patch(prep, applied.counts())
+        self._blocks = (applied.lo, applied.hi)  # refreshed on the device, reusable
         if self._needs_compact():
             # this walk already ran on the sparse image; make the NEXT
             # access rebuild densely instead of patching further
             self._stale = True
-        return visits
+        return visits if visits0 is not None else visits[0]

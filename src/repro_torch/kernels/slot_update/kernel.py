@@ -14,10 +14,6 @@ it.  The wrapper launches the kernel for CUDA tensors and uses its plain
 version, ``merge_rows_fused_torch``, only for CPU tensors;
 ``merge_rows_fused.launches`` counts kernel launches.
 
-``merge_rows`` is the row merge on padded [A, W] rows (the TPU kernel's
-contract), on the CPU only: on the card rows merge in place, through
-``merge_rows_fused``.
-
 ``merge_rows_torch`` is the port of ``repro``'s ``_merge_rows_xla``: a
 batched branchless bisect for op membership, rank arithmetic for placement
 and a (holes+1)-wide window for delete-hole compaction; runs wider than
@@ -176,16 +172,6 @@ def merge_rows_fused(dst, wgt, slot_rows, row_ops, b_dstdel, b_wgt, *,
 
 
 merge_rows_fused.launches = 0
-
-
-def merge_rows(d_rows, w_rows, degs, b_dst, b_wgt, b_del):
-    """Row merge on padded rows: [A, W] rows x [A, K] runs -> (out_d, out_w,
-    counts), on CPU tensors only (``merge_rows_torch``); on the card rows
-    merge in place, through ``merge_rows_fused``."""
-    if d_rows.device.type != "cpu":
-        raise ValueError("merge_rows on padded rows runs on the CPU only: on the card "
-                         "rows merge in place, through merge_rows_fused")
-    return merge_rows_torch(d_rows, w_rows, degs, b_dst, b_wgt, b_del)
 
 
 def _flat_set(size: int, idx, vals, fill, dtype, device):

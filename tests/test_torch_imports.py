@@ -147,6 +147,21 @@ def test_chip_smoke_imports_only_the_port():
                     "time", "numpy", "torch", "repro_torch"}, mods
 
 
+def test_row_merge_does_not_import_the_walk():
+    """The row merge sits beside the walk layer, not above it: no import
+    statement of ``kernels/slot_update/ops.py`` names ``slot_walk`` (read
+    from the source: importing ``repro_torch.kernels`` loads both)."""
+    with open(os.path.join(SRC, "repro_torch", "kernels", "slot_update", "ops.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names += [f"{node.module or ''}.{a.name}" for a in node.names]
+    assert not [n for n in names if "slot_walk" in n], names
+
+
 def test_chip_smoke_fails_without_a_gpu(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -448,35 +448,28 @@ def test_digraph_batch_kinds_cuda_match_plain(cuda):
             assert torch.equal(bg, bp), kind
 
 
-def test_fused_apply_cuda_syncs_only_for_counts(cuda, monkeypatch):
-    """On the card ``fused_apply`` synchronises with the host once: the
-    counts copy (no nonzero, no boolean-mask indexing, no .item())."""
+def test_fused_apply_cuda_syncs_only_for_counts(cuda):
+    """On the card ``DiGraph.apply`` synchronises with the host once: the
+    merge counts copy in ``counts()`` (no nonzero, no boolean-mask
+    indexing, no .item() in the planning, the launches or the install)."""
     import warnings
-
-    from repro_torch.kernels.slot_update import ops as su_ops
 
     c = synthetic.make_graph("social", scale=10, edge_factor=8, seed=2, device=cuda)
     g = DiGraph.from_csr(c, device=cuda)
     g.reverse_walk(1)
-    inner, syncs = su_ops.fused_apply, []
-
-    def watched(*args, **kwargs):
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as seen:
-                warnings.simplefilter("always")
-                out = inner(*args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        syncs.append([str(w.message) for w in seen if "synchroniz" in str(w.message)])
-        return out
-
-    monkeypatch.setattr(su_ops, "fused_apply", watched)
     rng = np.random.default_rng(4)
-    g.apply(updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 500),
-                                deletes=edgebatch.random_deletions(rng, g.to_csr(), 500)))
-    assert len(syncs) == 1 and len(syncs[0]) == 1, syncs
+    plan = updates.plan_update(inserts=edgebatch.random_insertions(rng, c.n, 500),
+                               deletes=edgebatch.random_deletions(rng, g.to_csr(), 500))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            g.apply(plan)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in seen if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, syncs
 
 
 def test_fused_apply_cuda_reuses_its_staging_buffer(cuda):

@@ -693,7 +693,7 @@ def test_kernel_fault_points_fire_once_with_no_chain(base_csr):
     for a, b in zip(before, (g.dst, g.wgt, g.slot_rows)):
         assert torch.equal(a, b)
     assert g.m == m and int(g.degrees.sum()) == m
-    # the walk epilogue of fused_apply fires slot_update.* only
+    # the walk that walk_flush queues behind its patch fires no slot_walk.* point
     c = T.REPRESENTATIONS["coo"].from_csr(base_csr, **CPU)
     c.reverse_walk(2)
     c, _ = c.apply(make_plan(np.random.default_rng(3)))

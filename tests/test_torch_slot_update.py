@@ -18,7 +18,7 @@ from repro.core import updates as j_updates
 from repro.core import util as j_util
 from repro.kernels.slot_update import ops as j_ops
 from repro.kernels.slot_update.ref import merge_rows_reference as j_reference
-from repro_torch.core import DiGraph, csr, edgebatch, updates, util
+from repro_torch.core import DiGraph, alloc, csr, edgebatch, updates, util
 from repro_torch.io import synthetic
 from repro_torch.kernels.slot_update import kernel as su_kernel
 from repro_torch.kernels.slot_update import ops as su_ops
@@ -73,7 +73,6 @@ def test_merge_rows_parity(seed, a, w, k, legs):
     _assert_merge_equal(merge_rows_reference(*case), exp, "port reference")
     args = [torch.from_numpy(x) for x in case]
     _assert_merge_equal(su_kernel.merge_rows_torch(*args), exp, "port plain")
-    _assert_merge_equal(su_kernel.merge_rows(*args), exp, "port wrapper on CPU")
     jargs = tuple(jnp.asarray(x) for x in case)
     for leg in legs:
         kw = {"interpret": True} if leg == "pallas" else {}
@@ -86,8 +85,7 @@ def test_merge_rows_bounded_hole_window(seed):
     case = _random_merge_case(np.random.default_rng(seed), 8, 64, 8)
     d_k = 1 << int(np.ceil(np.log2(max(int(case[5].sum(axis=1).max()), 1))))
     exp = j_merge(*(jnp.asarray(x) for x in case), backend="xla", max_holes=d_k)
-    got = su_ops.merge_rows(*(torch.from_numpy(x) for x in case), backend="torch",
-                            max_holes=d_k)
+    got = su_kernel.merge_rows_torch(*(torch.from_numpy(x) for x in case), max_holes=d_k)
     _assert_merge_equal(got, [np.asarray(x) for x in exp], "bounded window")
     _assert_merge_equal(got, j_reference(*case), "reference")
 
@@ -128,7 +126,7 @@ def test_dispatch_policies():
     for cap_e, touched in ((1 << 10, 4), (1 << 22, 4), (1 << 22, 1 << 20)):
         assert su_ops.choose_scatter(cap_e, touched, cpu) == j_ops.choose_scatter(cap_e, touched)
     for cap_e, bump in ((1 << 10, 1), (1 << 12, 3000), (1 << 20, 1 << 20)):
-        assert su_ops.quantized_prefix(cap_e, bump) == j_ops.quantized_prefix(cap_e, bump)
+        assert alloc.quantized_prefix(cap_e, bump) == j_ops.quantized_prefix(cap_e, bump)
 
 
 def test_scatter_write_back_matches_repro(monkeypatch):
